@@ -1,9 +1,12 @@
-"""The flagship benchmark configuration, config 4.
+"""Benchmark configurations 2, 3 and 4.
 
-Counterpart of `gptools_tpu.configs.config4_gibbs_smc`: the same numpy data
-generation (a 25-point pedestal profile plus two slope constraints, N = 27)
-and the same prior, built on an explicit device and dtype. Configs 1-3 and
-5 are ROADMAP Queue 1 item 15.
+Counterparts of `gptools_tpu.configs`: the same numpy data generation from
+the seed, the same priors and the same ``sampler`` / ``sampler_kwargs``
+metadata, built in a given dtype on the card unless the caller passes
+``device="cpu"``. Config 2 is an SE GP with two slope constraints (N = 32),
+config 3 a BetaWarp-ed Matern-5/2 GP with a linear mean (N = 35), config 4
+the Gibbs-tanh pedestal fit (N = 27). Configs 1 and 5 are ROADMAP Queue 1
+item 15.
 """
 
 from __future__ import annotations
@@ -14,7 +17,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["BaselineProblem", "config4_gibbs_smc"]
+__all__ = [
+    "BaselineProblem",
+    "config2_se_deriv_nuts",
+    "config3_matern_mean_warp_hmc",
+    "config4_gibbs_smc",
+    "ALL_CONFIGS",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +40,98 @@ class BaselineProblem:
     truth: dict
 
 
+def _device(device) -> torch.device:
+    """The device to build on; the card must be there when it is asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the configs build on the card by default; pass "
+            "device='cpu' for the CPU"
+        )
+    return dev
+
+
+def config2_se_deriv_nuts(
+    seed: int = 0,
+    n_points: int = 30,
+    dtype: torch.dtype = torch.float64,
+    device="cuda",
+) -> BaselineProblem:
+    """SE GP with derivative (slope-constraint) observations at both ends."""
+    from gptools_tpu_torch.models.dataset import DatasetBuilder
+    from gptools_tpu_torch.models.gp import GPModel
+    from gptools_tpu_torch.ops.kernels import SquaredExponentialKernel
+    from gptools_tpu_torch.utils.priors import LogNormalJointPrior
+
+    dev = _device(device)
+    rng = np.random.default_rng(seed)
+    X = np.linspace(0, 3, n_points)
+    f = np.sin(1.5 * X)
+    err = 0.1
+    y = f + err * rng.standard_normal(n_points)
+    b = DatasetBuilder(1)
+    b.add(X, y, err_y=err)
+    b.add(np.array([0.0]), np.array([1.5]), err_y=0.05, n=1)
+    b.add(np.array([3.0]), np.array([1.5 * np.cos(4.5)]), err_y=0.05, n=1)
+    model = GPModel(
+        SquaredExponentialKernel(
+            hyperprior=LogNormalJointPrior([0.0, -0.5], [0.75, 0.75])
+        )
+    )
+    return BaselineProblem(
+        name="config2_se_deriv_nuts",
+        description="SE GP with derivative observations; NUTS",
+        model=model,
+        data=b.build(dtype, dev),
+        sampler="nuts",
+        sampler_kwargs=dict(num_chains=8, num_warmup=500, num_samples=1000),
+        truth=dict(f=f, X=X, err=err),
+    )
+
+
+def config3_matern_mean_warp_hmc(
+    seed: int = 0,
+    n_points: int = 35,
+    dtype: torch.dtype = torch.float64,
+    device="cuda",
+) -> BaselineProblem:
+    """Matern-5/2 GP + linear mean + beta-CDF input warping."""
+    from gptools_tpu_torch.models.dataset import DatasetBuilder
+    from gptools_tpu_torch.models.gp import GPModel
+    from gptools_tpu_torch.models.mean import LinearMeanFunction
+    from gptools_tpu_torch.ops.kernels import BetaWarp, Matern52Kernel, WarpedKernel
+    from gptools_tpu_torch.utils.priors import (
+        LogNormalJointPrior,
+        NormalJointPrior,
+        UniformJointPrior,
+    )
+
+    dev = _device(device)
+    rng = np.random.default_rng(seed)
+    X = np.linspace(0.02, 0.98, n_points)
+    f = 0.8 * X + 0.3 * np.sin(8.0 * X**2)
+    err = 0.05
+    y = f + err * rng.standard_normal(n_points)
+    b = DatasetBuilder(1)
+    b.add(X, y, err_y=err)
+    kern = WarpedKernel(
+        Matern52Kernel(hyperprior=LogNormalJointPrior([0.0, -1.0], [0.75, 0.75])),
+        BetaWarp(),
+        hyperprior=LogNormalJointPrior([0.0, -1.0], [0.75, 0.75])
+        * UniformJointPrior([0.3, 0.3], [3.0, 3.0]),
+    )
+    mean = LinearMeanFunction(hyperprior=NormalJointPrior([0.0, 0.0], [2.0, 2.0]))
+    return BaselineProblem(
+        name="config3_matern_mean_warp_hmc",
+        description="Matern-5/2 + mean function + input warping; multi-chain HMC",
+        model=GPModel(kern, mean=mean),
+        data=b.build(dtype, dev),
+        sampler="hmc",
+        sampler_kwargs=dict(num_chains=16, num_warmup=500, num_samples=800),
+        truth=dict(f=f, X=X, err=err),
+    )
+
+
 def _pedestal_profile(x, x0=0.9, lam=0.05):
     prof = 1.0 - 0.5 * np.minimum(x, x0) ** 2
     edge = x > x0
@@ -41,7 +142,7 @@ def config4_gibbs_smc(
     seed: int = 0,
     n_points: int = 25,
     dtype: torch.dtype = torch.float64,
-    device="cpu",
+    device="cuda",
 ) -> BaselineProblem:
     """Gibbs tanh-warp kernel profile fit with edge derivative constraints."""
     from gptools_tpu_torch.models.dataset import DatasetBuilder
@@ -49,6 +150,7 @@ def config4_gibbs_smc(
     from gptools_tpu_torch.ops.kernels import GibbsKernel1dTanh
     from gptools_tpu_torch.utils.priors import LogNormalJointPrior, UniformJointPrior
 
+    dev = _device(device)
     rng = np.random.default_rng(seed)
     x = np.linspace(0.0, 1.2, n_points)
     prof = _pedestal_profile(x)
@@ -71,8 +173,15 @@ def config4_gibbs_smc(
         description="Gibbs tanh kernel profile fit with edge derivative "
         "constraints; SMC",
         model=model,
-        data=b.build(dtype, device),
+        data=b.build(dtype, dev),
         sampler="smc",
         sampler_kwargs=dict(num_particles=2048, num_mutations=8),
         truth=dict(profile=prof, X=x, err=err),
     )
+
+
+ALL_CONFIGS = {
+    2: config2_se_deriv_nuts,
+    3: config3_matern_mean_warp_hmc,
+    4: config4_gibbs_smc,
+}

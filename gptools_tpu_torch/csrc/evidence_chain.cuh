@@ -1,0 +1,491 @@
+// Per-chain GP evidence value and analytic gradient, for three pair kinds.
+//
+// Replaces the TPU kernel gptools_tpu/ops/evidence_pallas.py ::
+// build_loglik_vag (body `kernel`, launched by `pl.pallas_call` in `call`
+// at :475) for its kinds "gibbs_tanh" (theta = sigma_f, l1, l2, lw, x0),
+// "se" and "matern52" (theta = sigma_f, l), with its auxiliary per-point
+// inputs: mu (mean at each observation), nd (theta-dependent noise
+// variance on the diagonal), w (warped coordinate) and wp (warp slope).
+// For one chain it computes, in one pass:
+//
+//   per-point operands (the tanh length-scale profile l, l' for Gibbs; the
+//   warped coordinate and slope, or X and 1, for the stationary kinds) ->
+//   lower-triangle pairs K_ij (i >= j) with the derivative-block selector
+//   sel = 2 nid_i + nid_j -> err^2, nd and relative jitter
+//   df * eps * max(mean diag, 1) -> Cholesky -> solves on y - mu -> ll ->
+//   Z = L^{-1} -> K^{-1} at the pairs -> dll/dK (+ jitter trace term) ->
+//   per-pair VJPs -> dll/dtheta and dll/d(mu, nd, w, wp).
+//   A non-finite ll gives ll = -inf and all-zero gradients and cotangents.
+//
+// The Pallas body takes its pair and warp gradients with jax.vjp; here they
+// are derived by hand (`gibbs_pair_vjp`, `warp_vjp`, the partials of
+// `stat_pair`), and the CPU tests compile this header with the host C++
+// compiler (GT_HD expands to nothing there) and hold it against torch
+// autograd of the plain version.
+//
+// Matern-5/2 takes |d| = sgn * d with sgn the sign of the UNWARPED
+// separation X_i - X_j (0 on the diagonal and at repeated x), as the
+// reference does, so |d| is exact for a warped d = w_i - w_j too (monotone
+// warps keep the order of the points) and d|d|/dd is sgn, never NaN.
+//
+// Aux channels are runtime pointers, null when absent (the wrapper passes
+// exactly those the model has). A branch on a null pointer is the same for
+// every thread of a launch, so it costs one uniform test per point or pair;
+// template flags would multiply the instantiations (3 kinds x 2 dtypes x
+// 8 aux sets) and the build time for no measured gain. Each aux array is
+// (N, C) row-major: thread c reads p[i * C + c], so a warp's loads are
+// coalesced.
+//
+// Layout: one thread per chain, as in the first version of this kernel.
+// The triangle lives in a packed local array (index i(i+1)/2 + j); the
+// Cholesky factor overwrites K in place and L^{-1} then overwrites L, so
+// one array of N_MAX(N_MAX+1)/2 values carries the whole factorization.
+//
+// What bounds it on Hopper: per chain ~N^3 flops of dependent multiply-
+// adds over local memory (Cholesky, L^{-1} and K^{-1} at the pairs, ~N^3/6
+// each) plus ~50-150 flops per pair for the build and its VJP: at N = 27-35
+// and C = 4096-12288 about 1e8-5e8 flops a call, a bound of ~2-8 us at the
+// card's 67 TFLOP/s FP32 (twice that at 34 TFLOP/s FP64); the bytes (theta
+// and the aux channels in, ll, grad and cotangents out) are ~0.5-5 MB, a
+// bound of ~0.2-1.5 us at 3.35 TB/s. The kernel runs ~100x slower than that:
+// one thread per chain leaves the card at a fraction of one wave with a
+// 6-13 KB local frame per thread, so it is bound by the latency of
+// L1-cached local loads and of the FP64 pipe. The design is kept unchanged
+// here because it is right, already 5-17x faster than the plain version,
+// and well under the host-side time per leapfrog (PERF.md); a warp per
+// chain with the triangle in shared memory or registers is the next step
+// (ROADMAP Queue 2 item 1).
+
+#pragma once
+
+#include <cmath>
+
+#ifdef __CUDACC__
+#define GT_HD __host__ __device__ __forceinline__
+#else
+#define GT_HD inline
+#endif
+
+namespace gt {
+
+constexpr int N_MAX = 48;
+constexpr int PACKED_MAX = N_MAX * (N_MAX + 1) / 2;
+constexpr int P_MAX = 5;
+constexpr double LOG_2PI = 1.8378770664093453;
+constexpr double SQRT5 = 2.23606797749979;
+
+enum Kind { GIBBS_TANH = 0, SE = 1, MATERN52 = 2 };
+
+// theta rows the kernel sees for each kind
+template <int K> struct KindParams;
+template <> struct KindParams<GIBBS_TANH> { static constexpr int value = 5; };
+template <> struct KindParams<SE> { static constexpr int value = 2; };
+template <> struct KindParams<MATERN52> { static constexpr int value = 2; };
+
+template <typename T> struct Eps;
+template <> struct Eps<float> { static constexpr double value = 1.1920928955078125e-07; };
+template <> struct Eps<double> { static constexpr double value = 2.220446049250313e-16; };
+
+#ifdef __CUDACC__
+GT_HD float m_exp(float x) { return expf(x); }
+GT_HD double m_exp(double x) { return exp(x); }
+GT_HD float m_log(float x) { return logf(x); }
+GT_HD double m_log(double x) { return log(x); }
+GT_HD float m_sqrt(float x) { return sqrtf(x); }
+GT_HD double m_sqrt(double x) { return sqrt(x); }
+GT_HD float m_tanh(float x) { return tanhf(x); }
+GT_HD double m_tanh(double x) { return tanh(x); }
+#else
+template <typename T> inline T m_exp(T x) { return std::exp(x); }
+template <typename T> inline T m_log(T x) { return std::log(x); }
+template <typename T> inline T m_sqrt(T x) { return std::sqrt(x); }
+template <typename T> inline T m_tanh(T x) { return std::tanh(x); }
+#endif
+
+// x - x is 0 for finite x and NaN for +-inf and NaN (IEEE; the kernel is
+// built without fast-math).
+template <typename T> GT_HD bool m_isfinite(T x) { return x - x == T(0); }
+
+GT_HD int tri(int i, int j) { return i * (i + 1) / 2 + j; }  // i >= j
+
+// The aux channels of one chain: element i at p[i * stride]; null = absent.
+template <typename T>
+struct Aux {
+  const T* mu;  // mean at each observation (y - mu enters the solves)
+  const T* nd;  // noise variance on the diagonal
+  const T* w;   // warped coordinate (stationary kinds only)
+  const T* wp;  // warp slope (only with w, and only when slopes exist)
+  T* gmu;       // dll/dmu, dll/dnd, dll/dw, dll/dwp (null where the
+  T* gnd;       // matching input is null)
+  T* gw;
+  T* gwp;
+  int stride;
+};
+
+// ---- Gibbs-tanh pairs ----------------------------------------------------
+
+// One lower-triangle covariance entry: sel 0 = value-value, 1 = value-slope
+// (column derivative), 2 = slope-value (row derivative), 3 = slope-slope.
+// Same expressions as _gibbs_pair in the reference kernel.
+template <typename T>
+GT_HD T gibbs_pair_value(T sf, T la, T dla, T lb, T dlb, T d, int sel) {
+  const T u = la * la, v = lb * lb;
+  const T inv_S = T(1) / (u + v);
+  const T k = (sf * sf) * m_sqrt(T(2) * la * lb * inv_S) * m_exp(-(d * d) * inv_S);
+  if (sel == 0) return k;
+  const T up = T(2) * la * dla, vp = T(2) * lb * dlb;
+  const T inv_S2 = inv_S * inv_S;
+  const T common = T(-0.5) * inv_S + (d * d) * inv_S2;
+  const T g1 = up * (T(0.25) / u + common) - T(2) * d * inv_S;
+  const T g2 = vp * (T(0.25) / v + common) + T(2) * d * inv_S;
+  if (sel == 2) return g1 * k;
+  if (sel == 1) return g2 * k;
+  const T dg2dx = vp * (T(0.5) * up * inv_S2 + T(2) * d * inv_S2
+                        - T(2) * (d * d) * up * inv_S2 * inv_S)
+                  + T(2) * inv_S - T(2) * d * up * inv_S2;
+  return (g1 * g2 + dg2dx) * k;
+}
+
+// Reverse mode of gibbs_pair_value by hand: given the cotangent `gbar` of
+// the entry, ADD d(entry)/d(sf, la, dla, lb, dlb) * gbar into the
+// accumulators. Writing the entry as F * k with k = sf^2 sqrt(2 la lb iS)
+// exp(-d^2 iS), iS = 1/(la^2 + lb^2), and F in {1, g1, g2, g1 g2 + dg2dx},
+// the adjoints flow back through the intermediates (g1, g2, dg2dx, common,
+// iS2, iS, up, vp, u, v) to the five operands.
+template <typename T>
+GT_HD void gibbs_pair_vjp(T sf, T la, T dla, T lb, T dlb, T d, int sel, T gbar,
+                          T& sf_bar, T& la_bar, T& dla_bar, T& lb_bar, T& dlb_bar) {
+  const T u = la * la, v = lb * lb;
+  const T S = u + v;
+  const T iS = T(1) / S;
+  const T d2 = d * d;
+  const T sqE = m_sqrt(T(2) * la * lb * iS) * m_exp(-d2 * iS);
+  const T k = (sf * sf) * sqE;
+  const T up = T(2) * la * dla, vp = T(2) * lb * dlb;
+  const T iS2 = iS * iS;
+  const T common = T(-0.5) * iS + d2 * iS2;
+  T g1 = T(0), g2 = T(0), F = T(1);
+  if (sel != 0) {
+    g1 = up * (T(0.25) / u + common) - T(2) * d * iS;
+    g2 = vp * (T(0.25) / v + common) + T(2) * d * iS;
+  }
+  const T B = T(0.5) * up * iS2 + T(2) * d * iS2 - T(2) * d2 * up * iS2 * iS;
+  if (sel == 2) F = g1;
+  if (sel == 1) F = g2;
+  if (sel == 3) F = g1 * g2 + vp * B + T(2) * iS - T(2) * d * up * iS2;
+
+  // entry = F * k
+  const T k_bar = gbar * F;
+  const T F_bar = gbar * k;
+  T g1_bar = T(0), g2_bar = T(0), dg_bar = T(0);
+  if (sel == 2) g1_bar = F_bar;
+  if (sel == 1) g2_bar = F_bar;
+  if (sel == 3) { g1_bar = F_bar * g2; g2_bar = F_bar * g1; dg_bar = F_bar; }
+
+  T up_bar = T(0), vp_bar = T(0), u_bar = T(0), v_bar = T(0);
+  T common_bar = T(0), iS2_bar = T(0), iS_bar = T(0);
+  // g1 = up (1/(4u) + common) - 2 d iS
+  up_bar += g1_bar * (T(0.25) / u + common);
+  u_bar += g1_bar * up * (T(-0.25) / (u * u));
+  common_bar += g1_bar * up;
+  iS_bar += g1_bar * (T(-2) * d);
+  // g2 = vp (1/(4v) + common) + 2 d iS
+  vp_bar += g2_bar * (T(0.25) / v + common);
+  v_bar += g2_bar * vp * (T(-0.25) / (v * v));
+  common_bar += g2_bar * vp;
+  iS_bar += g2_bar * (T(2) * d);
+  // dg2dx = vp B + 2 iS - 2 d up iS2,
+  // B = up iS2 / 2 + 2 d iS2 - 2 d^2 up iS2 iS
+  vp_bar += dg_bar * B;
+  const T B_bar = dg_bar * vp;
+  up_bar += B_bar * (T(0.5) * iS2 - T(2) * d2 * iS2 * iS) + dg_bar * (T(-2) * d * iS2);
+  iS2_bar += B_bar * (T(0.5) * up + T(2) * d - T(2) * d2 * up * iS)
+             + dg_bar * (T(-2) * d * up);
+  iS_bar += B_bar * (T(-2) * d2 * up * iS2) + dg_bar * T(2);
+  // common = -iS / 2 + d^2 iS2
+  iS_bar += common_bar * T(-0.5);
+  iS2_bar += common_bar * d2;
+  // iS2 = iS^2
+  iS_bar += iS2_bar * T(2) * iS;
+  // k: d log k / d iS = 1/(2 iS) - d^2 ; d log k / d la (direct) = 1/(2 la)
+  iS_bar += k_bar * k * (T(0.5) * S - d2);
+  sf_bar += k_bar * T(2) * sf * sqE;
+  T la_b = k_bar * k * (T(0.5) / la);
+  T lb_b = k_bar * k * (T(0.5) / lb);
+  // iS = 1/S, S = u + v
+  const T S_bar = -iS_bar * iS * iS;
+  u_bar += S_bar;
+  v_bar += S_bar;
+  // u = la^2, v = lb^2, up = 2 la dla, vp = 2 lb dlb
+  la_b += u_bar * T(2) * la + up_bar * T(2) * dla;
+  lb_b += v_bar * T(2) * lb + vp_bar * T(2) * dlb;
+  la_bar += la_b;
+  lb_bar += lb_b;
+  dla_bar += up_bar * T(2) * la;
+  dlb_bar += vp_bar * T(2) * lb;
+}
+
+// The tanh warp at one point: z = (x - x0)/lw, t = tanh(z),
+// l = l1 + (l2 - l1)(1 + t)/2, l' = (l2 - l1)(1 - t^2)/(2 lw).
+template <typename T>
+GT_HD void tanh_warp(T l1, T l2, T lw, T x0, double x, T& z, T& t, T& l, T& dl) {
+  z = (T(x) - x0) / lw;
+  t = m_tanh(z);
+  l = l1 + T(0.5) * (l2 - l1) * (T(1) + t);
+  dl = T(0.5) * (l2 - l1) * (T(1) - t * t) / lw;
+}
+
+// Reverse mode of the tanh warp at one point: ADD (dl/dq * l_bar +
+// dl'/dq * dl_bar) for q in (l1, l2, lw, x0) into g[1..4].
+template <typename T>
+GT_HD void warp_vjp(T l1, T l2, T lw, T z, T t, T dl, T l_bar, T dl_bar, T* g) {
+  const T h = T(1) - t * t;
+  const T t_bar = l_bar * T(0.5) * (l2 - l1) - dl_bar * (l2 - l1) * t / lw;
+  const T z_bar = t_bar * h;
+  g[1] += l_bar * T(0.5) * (T(1) - t) - dl_bar * T(0.5) * h / lw;
+  g[2] += l_bar * T(0.5) * (T(1) + t) + dl_bar * T(0.5) * h / lw;
+  g[3] += -dl_bar * dl / lw - z_bar * z / lw;
+  g[4] += -z_bar / lw;
+}
+
+// ---- stationary pairs (SE, Matern-5/2) -----------------------------------
+
+// One entry of the base kernel at separation d is sf^2 * G(l, d); this
+// returns G, with the expressions of _se_pair / _matern52_pair in the
+// reference kernel. With `want_grad`, also its partials Gd = dG/dd and
+// Gl = dG/dl.
+template <typename T, int K>
+GT_HD T stat_pair(T ell, T d, T sgn, int sel, bool want_grad, T& Gd, T& Gl) {
+  if constexpr (K == SE) {
+    const T inv_l2 = T(1) / (ell * ell);
+    const T r2 = (d * d) * inv_l2;
+    const T E = m_exp(T(-0.5) * r2);
+    T G;
+    if (sel == 0) {
+      G = E;
+      if (want_grad) { Gd = -d * inv_l2 * E; Gl = E * r2 / ell; }
+    } else if (sel == 3) {
+      G = (T(1) - r2) * inv_l2 * E;
+      if (want_grad) {
+        Gd = -d * inv_l2 * inv_l2 * E * (T(3) - r2);
+        Gl = inv_l2 * E * (T(-2) + T(5) * r2 - r2 * r2) / ell;
+      }
+    } else {
+      // sel 1: d/l^2 E; sel 2: its negative
+      const T s = sel == 1 ? T(1) : T(-1);
+      G = s * d * inv_l2 * E;
+      if (want_grad) {
+        Gd = s * inv_l2 * E * (T(1) - r2);
+        Gl = s * d * inv_l2 * E * (r2 - T(2)) / ell;
+      }
+    }
+    return G;
+  } else {
+    // s = sqrt(5)|d|/l with |d| = sgn d; ds/dd = sqrt(5) sgn / l, ds/dl = -s/l
+    const T s = (T(SQRT5) / ell) * (sgn * d);
+    const T E = m_exp(-s);
+    const T c53 = T(5.0 / 3.0) / (ell * ell);
+    T G, Gs = T(0), Gd_x = T(0), Gl_x = T(0);  // dG/ds and explicit partials
+    if (sel == 0) {
+      G = (T(1) + s + s * s * T(1.0 / 3.0)) * E;
+      if (want_grad) Gs = -(s * (T(1) + s) * T(1.0 / 3.0)) * E;
+    } else if (sel == 3) {
+      G = c53 * (T(1) + s - s * s) * E;
+      if (want_grad) { Gs = c53 * s * (s - T(3)) * E; Gl_x = T(-2) * G / ell; }
+    } else {
+      const T sg = sel == 1 ? T(1) : T(-1);
+      G = sg * c53 * d * (T(1) + s) * E;
+      if (want_grad) {
+        Gs = -sg * c53 * d * s * E;
+        Gd_x = sg * c53 * (T(1) + s) * E;
+        Gl_x = T(-2) * G / ell;
+      }
+    }
+    if (want_grad) {
+      Gd = Gs * (T(SQRT5) * sgn / ell) + Gd_x;
+      Gl = Gs * (-s / ell) + Gl_x;
+    }
+    return G;
+  }
+}
+
+// The warp-slope factor of a stationary entry: the row (sel 2), column
+// (sel 1) or both (sel 3) derivatives of k(w(x), w(x')) carry w'.
+template <typename T>
+GT_HD T slope_scale(int sel, T wpi, T wpj) {
+  return sel == 0 ? T(1) : sel == 2 ? wpi : sel == 1 ? wpj : wpi * wpj;
+}
+
+// ---- the chain ------------------------------------------------------------
+
+// Evidence value and gradient of one chain. X, y, err2 (n,) are the
+// observation constants (double), nid (n,) the order ids in {0, 1},
+// n <= N_MAX; th holds the kind's theta rows; grad_out gets as many.
+template <typename T, int K>
+GT_HD void evidence_chain(int n, const double* X, const int* nid,
+                          const double* y, const double* err2, double df,
+                          const T* th, const Aux<T>& aux, T* ll_out,
+                          T* grad_out) {
+  constexpr int P = KindParams<K>::value;
+  const int st = aux.stride;
+  const bool warped = aux.w != nullptr;
+  // per-point pair operands: (l, l') for Gibbs; (w, w') or (unused, 1)
+  T a0[N_MAX], a1[N_MAX];
+  for (int i = 0; i < n; ++i) {
+    if constexpr (K == GIBBS_TANH) {
+      T z, t;
+      tanh_warp<T>(th[1], th[2], th[3], th[4], X[i], z, t, a0[i], a1[i]);
+    } else {
+      a0[i] = warped ? aux.w[i * st] : T(0);
+      a1[i] = aux.wp ? aux.wp[i * st] : T(1);
+    }
+  }
+
+  // ---- build the lower triangle, err^2, noise and relative jitter -------
+  T A[PACKED_MAX];
+  T scale = T(0);
+  for (int i = 0; i < n; ++i) {
+    for (int j = 0; j <= i; ++j) {
+      const int sel = 2 * nid[i] + nid[j];
+      if constexpr (K == GIBBS_TANH) {
+        A[tri(i, j)] = gibbs_pair_value<T>(th[0], a0[i], a1[i], a0[j], a1[j],
+                                           T(X[i] - X[j]), sel);
+      } else {
+        const T d = warped ? a0[i] - a0[j] : T(X[i] - X[j]);
+        const T sgn = T((X[i] > X[j]) - (X[i] < X[j]));
+        T Gd, Gl;
+        A[tri(i, j)] = th[0] * th[0] * stat_pair<T, K>(th[1], d, sgn, sel, false, Gd, Gl)
+                       * slope_scale<T>(sel, a1[i], a1[j]);
+      }
+    }
+    A[tri(i, i)] += T(err2[i]);
+    if (aux.nd) A[tri(i, i)] += aux.nd[i * st];
+    scale += A[tri(i, i)];
+  }
+  scale = scale * T(1.0 / n);
+  const T jitter = T(df * Eps<T>::value) * (scale > T(1) ? scale : T(1));
+  for (int i = 0; i < n; ++i) A[tri(i, i)] += jitter;
+
+  // ---- Cholesky in place (row by row; a bad pivot propagates NaN) -------
+  for (int i = 0; i < n; ++i) {
+    for (int j = 0; j <= i; ++j) {
+      T s = A[tri(i, j)];
+      for (int k = 0; k < j; ++k) s -= A[tri(i, k)] * A[tri(j, k)];
+      A[tri(i, j)] = (i == j) ? m_sqrt(s) : s / A[tri(j, j)];
+    }
+  }
+
+  // ---- solves on the residual y - mu, and ll ----------------------------
+  T wv[N_MAX], alpha[N_MAX];
+  T quad = T(0), logdet = T(0);
+  for (int i = 0; i < n; ++i) {
+    T s = T(y[i]);
+    if (aux.mu) s -= aux.mu[i * st];
+    for (int k = 0; k < i; ++k) s -= A[tri(i, k)] * wv[k];
+    wv[i] = s / A[tri(i, i)];
+    quad += wv[i] * wv[i];
+    logdet += m_log(A[tri(i, i)]);
+  }
+  for (int i = n - 1; i >= 0; --i) {
+    T s = wv[i];
+    for (int k = i + 1; k < n; ++k) s -= A[tri(k, i)] * alpha[k];
+    alpha[i] = s / A[tri(i, i)];
+  }
+  const T ll = T(-0.5) * quad - logdet - T(0.5 * n * LOG_2PI);
+  if (!m_isfinite(ll)) {
+    *ll_out = -T(INFINITY);
+    for (int p = 0; p < P; ++p) grad_out[p] = T(0);
+    for (int i = 0; i < n; ++i) {
+      if (aux.gmu) aux.gmu[i * st] = T(0);
+      if (aux.gnd) aux.gnd[i * st] = T(0);
+      if (aux.gw) aux.gw[i * st] = T(0);
+      if (aux.gwp) aux.gwp[i * st] = T(0);
+    }
+    return;
+  }
+  *ll_out = ll;
+
+  // ---- Z = L^{-1} in place, column by column ----------------------------
+  // Column j reads L[i][k] for k > j and L[i][i] (not yet overwritten) and
+  // Z[k][j] for k < i (already written), so L can be overwritten as we go.
+  for (int j = 0; j < n; ++j) {
+    A[tri(j, j)] = T(1) / A[tri(j, j)];
+    for (int i = j + 1; i < n; ++i) {
+      T s = -A[tri(i, j)] * A[tri(j, j)];
+      for (int k = j + 1; k < i; ++k) s -= A[tri(i, k)] * A[tri(k, j)];
+      A[tri(i, j)] = s / A[tri(i, i)];
+    }
+  }
+
+  // ---- dll/dK at the pairs: K^{-1}_ij = sum_{k >= i} Z_ki Z_kj ----------
+  T trace = T(0);
+  T kbar_diag[N_MAX];
+  for (int i = 0; i < n; ++i) {
+    T kinv = T(0);
+    for (int k = i; k < n; ++k) kinv += A[tri(k, i)] * A[tri(k, i)];
+    kbar_diag[i] = T(0.5) * (alpha[i] * alpha[i] - kinv);
+    trace += kbar_diag[i];
+  }
+  // the jitter depends on mean(diag K) only where scale > 1; nd sits on
+  // the diagonal before the jitter, so its cotangent carries corr too
+  const T corr = scale > T(1) ? T(df * Eps<T>::value / n) * trace : T(0);
+
+  // ---- backward through the build ---------------------------------------
+  // b0, b1: cotangents of the per-point operands a0, a1
+  T b0[N_MAX], b1[N_MAX];
+  for (int i = 0; i < n; ++i) { b0[i] = T(0); b1[i] = T(0); }
+  T g[P_MAX] = {T(0), T(0), T(0), T(0), T(0)};
+  for (int i = 0; i < n; ++i) {
+    for (int j = 0; j <= i; ++j) {
+      T gbar;
+      if (i == j) {
+        gbar = kbar_diag[i] + corr;
+      } else {
+        // only the lower triangle was built, so the off-diagonal cotangent
+        // carries both symmetric halves: alpha_i alpha_j - K^{-1}_ij
+        T kinv = T(0);
+        for (int k = i; k < n; ++k) kinv += A[tri(k, i)] * A[tri(k, j)];
+        gbar = alpha[i] * alpha[j] - kinv;
+      }
+      const int sel = 2 * nid[i] + nid[j];
+      if constexpr (K == GIBBS_TANH) {
+        gibbs_pair_vjp<T>(th[0], a0[i], a1[i], a0[j], a1[j], T(X[i] - X[j]),
+                          sel, gbar, g[0], b0[i], b1[i], b0[j], b1[j]);
+      } else {
+        const T d = warped ? a0[i] - a0[j] : T(X[i] - X[j]);
+        const T sgn = T((X[i] > X[j]) - (X[i] < X[j]));
+        T Gd, Gl;
+        const T G = stat_pair<T, K>(th[1], d, sgn, sel, true, Gd, Gl);
+        const T sf2 = th[0] * th[0];
+        const T v = sf2 * G;
+        // entry = v * scale(wp_i, wp_j)
+        const T vbar = gbar * slope_scale<T>(sel, a1[i], a1[j]);
+        if (sel == 2) b1[i] += gbar * v;
+        if (sel == 1) b1[j] += gbar * v;
+        if (sel == 3) { b1[i] += gbar * v * a1[j]; b1[j] += gbar * v * a1[i]; }
+        g[0] += vbar * T(2) * th[0] * G;
+        g[1] += vbar * sf2 * Gl;
+        // d = w_i - w_j
+        const T dbar = vbar * sf2 * Gd;
+        b0[i] += dbar;
+        b0[j] -= dbar;
+      }
+    }
+  }
+  if constexpr (K == GIBBS_TANH) {
+    for (int i = 0; i < n; ++i) {
+      T z, t, l, dl;
+      tanh_warp<T>(th[1], th[2], th[3], th[4], X[i], z, t, l, dl);
+      warp_vjp<T>(th[1], th[2], th[3], z, t, dl, b0[i], b1[i], g);
+    }
+  }
+  for (int p = 0; p < P; ++p) grad_out[p] = g[p];
+  for (int i = 0; i < n; ++i) {
+    if (aux.gmu) aux.gmu[i * st] = alpha[i];  // ll = -r^T K^-1 r / 2, r = y - mu
+    if (aux.gnd) aux.gnd[i * st] = kbar_diag[i] + corr;
+    if (aux.gw) aux.gw[i * st] = b0[i];
+    if (aux.gwp) aux.gwp[i * st] = b1[i];
+  }
+}
+
+}  // namespace gt

@@ -1,59 +1,121 @@
 """GP model: parameter bookkeeping and the batched densities.
 
-Counterpart of the `GPModel` batch surface of `gptools_tpu.models.gp`. All
-densities take a chain batch: ``thetas (C, P)`` or ``us (C, Pf)`` -> ``(C,)``.
-The evidence goes by the dataset's device: a CUDA `Dataset` through the
-hand-written kernel (`ops.evidence_cuda`), which must take the model or the
-call raises; a CPU `Dataset` through the kernel's plain version. There is no
-backend switch.
+Counterpart of the `GPModel` batch surface of `gptools_tpu.models.gp`,
+with its theta layout ``[kernel | noise kernel | mean]``. All densities
+take a chain batch: ``thetas (C, P)`` or ``us (C, Pf)`` -> ``(C,)``.
 
-Not ported yet: noise kernels and mean functions (ROADMAP Queue 1 item 9),
-the generic derivative assembly for kernels the fused builder does not
-classify (item 10), and the single-theta surface and the `GaussianProcess`
-wrapper (item 12).
+The evidence always goes through the evidence kernel (`ops.evidence_cuda`)
+under the reference's eligibility rules for its fused Pallas kernel
+(`_pallas_evidence_fn`): a classified kernel (SE, Matern-5/2, Gibbs-tanh,
+the stationary ones optionally under a BetaWarp / LinearWarp), any ported
+mean function, an optional `DiagonalNoiseKernel` whose rows are purely
+diagonal, 1-D data with orders {0, 1}. Only the kernel's base rows go to
+the kernel; the mean (``mu``), the noise variance (``nd``) and the warped
+coordinates (``w``, ``wp``) are computed here in torch and enter as aux
+channels, and autograd chains the kernel's aux cotangents through them.
+A CUDA `Dataset` takes the kernel (N <= its N_MAX or the call raises), a
+CPU `Dataset` its plain version.
+
+The reference falls back to its generic XLA path outside those rules. The
+port has no generic path yet, so there it raises `NotImplementedError`
+(ROADMAP Queue 1 item 10): other kernels, noise kernels other than a
+purely diagonal `DiagonalNoiseKernel`, and observation transforms (T).
+The single-theta surface and the `GaussianProcess` wrapper are item 12.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
+import numpy as np
 import torch
 
 from gptools_tpu_torch.models.dataset import Dataset
+from gptools_tpu_torch.models.mean import MeanFunction, mean_vector
 from gptools_tpu_torch.ops import evidence_cuda, fused
-from gptools_tpu_torch.ops.kernels import Kernel
+from gptools_tpu_torch.ops.kernels import DiagonalNoiseKernel, Kernel
 
 __all__ = ["GPModel"]
 
+_GENERIC = "the generic assembly is ROADMAP Queue 1 item 10"
+
+
+class _EvidencePlan(NamedTuple):
+    """What one dataset needs per evidence call: the kernel's constants and
+    how to form its inputs from the full theta rows."""
+
+    ev: evidence_cuda.EvidenceData
+    n_base: int            # theta rows the kernel takes
+    input_warp: object     # BetaWarp / LinearWarp, or None
+    noise_mask: Optional[torch.Tensor]  # (N, 1) rows the noise applies to
+
 
 class GPModel:
-    """GP specification: kernel + parameter metadata + batched densities.
+    """GP specification: kernel (+ noise kernel, + mean) with parameter
+    metadata and batched densities.
 
-    ``theta`` is the flat kernel-parameter vector; its free entries map to
-    the unconstrained sampler space through the hyperprior's bijector.
+    ``theta`` is the flat vector ``[kernel params | noise-kernel params |
+    mean params]``; its free entries map to the unconstrained sampler space
+    through the hyperprior's bijector.
     """
 
     def __init__(
         self,
         kernel: Kernel,
-        noise_kernel=None,
-        mean=None,
+        noise_kernel: Optional[Kernel] = None,
+        mean: Optional[MeanFunction] = None,
         diag_factor: float = 1e2,
     ):
-        if noise_kernel is not None or mean is not None:
+        if noise_kernel is not None and type(noise_kernel) is not DiagonalNoiseKernel:
             raise NotImplementedError(
-                "noise kernels and mean functions are ROADMAP Queue 1 item 9"
+                f"noise kernel {type(noise_kernel).__name__}: only "
+                f"DiagonalNoiseKernel is ported; {_GENERIC}"
             )
         self.kernel = kernel
+        self.noise_kernel = noise_kernel
+        self.mean = mean
         self.diag_factor = float(diag_factor)
-        self.num_params = kernel.num_params
-        self.param_names = tuple(f"k.{n}" for n in kernel.param_names)
-        self.fixed_params = tuple(kernel.fixed_params)
-        self.param_bounds = list(kernel.param_bounds)
-        self.initial_params = tuple(kernel.initial_params)
+
+        sizes = (
+            kernel.num_params,
+            noise_kernel.num_params if noise_kernel else 0,
+            mean.num_params if mean else 0,
+        )
+        self._sizes = sizes
+        self._offsets = (0, sizes[0], sizes[0] + sizes[1])
+        self.num_params = sum(sizes)
+
+        names = [f"k.{n}" for n in kernel.param_names]
+        fixed = list(kernel.fixed_params)
+        bounds = list(kernel.param_bounds)
+        init = list(kernel.initial_params)
+        parts = [kernel.hyperprior]
+        if noise_kernel:
+            names += [f"noise.{n}" for n in noise_kernel.param_names]
+            fixed += list(noise_kernel.fixed_params)
+            bounds += list(noise_kernel.param_bounds)
+            init += list(noise_kernel.initial_params)
+            if noise_kernel.num_params:
+                parts.append(noise_kernel.hyperprior)
+        if mean:
+            names += [f"mu.{n}" for n in mean.param_names]
+            fixed += list(mean.fixed_params)
+            bounds += list(mean.param_bounds)
+            init += list(mean.initial_params)
+            if mean.num_params and mean.hyperprior is not None:
+                parts.append(mean.hyperprior)
+        self.param_names = tuple(names)
+        self.fixed_params = tuple(fixed)
+        self.param_bounds = bounds
+        self.initial_params = tuple(init)
         self.free_idx = tuple(i for i, f in enumerate(self.fixed_params) if not f)
         self.num_free_params = len(self.free_idx)
-        self.hyperprior = kernel.hyperprior
+        prior = parts[0]
+        for p in parts[1:]:
+            prior = prior * p
+        self.hyperprior = prior
         self.bijector = self.hyperprior.bijector()
-        self._evidence_cache = None  # (Dataset, EvidenceData) last used
+        self._plan_cache = None  # (Dataset, _EvidencePlan) last used
 
     # -- free/fixed embedding (last axis) ------------------------------------
     def _full(self, free: torch.Tensor, fill: torch.Tensor) -> torch.Tensor:
@@ -89,39 +151,96 @@ class GPModel:
     def log_prior(self, theta_full: torch.Tensor) -> torch.Tensor:
         return self.hyperprior.log_prob(theta_full)
 
-    def _batch_supported(self, data: Dataset) -> bool:
-        # none of the ported kernels has white-noise (delta) terms
-        return fused.fused_supported(self.kernel, data.multi_indices, data.num_dim)
+    def _evidence_plan(self, data: Dataset) -> _EvidencePlan:
+        """The reference's eligibility rules and constants for one dataset,
+        resolved once and reused while the same `Dataset` comes back (every
+        call of a sampler run)."""
+        if self._plan_cache is not None and self._plan_cache[0] is data:
+            return self._plan_cache[1]
+        if data.num_dim != 1 or not set(data.multi_indices) <= {(0,), (1,)}:
+            raise NotImplementedError(
+                f"{data.num_dim}-D data with orders {data.multi_indices}: the "
+                f"evidence kernel takes 1-D values and slopes; {_GENERIC}"
+            )
+        cls = fused.classify_flagship(self.kernel)
+        if cls is None or self.kernel.delta_terms():
+            raise NotImplementedError(
+                f"kernel {type(self.kernel).__name__} has no evidence-kernel "
+                f"kind; {_GENERIC}"
+            )
+        kind, n_base, input_warp = cls
+        X = data.Xf[:, 0].detach().cpu().double().numpy()
+        nid = data.nid.cpu().numpy()
+        ids = np.asarray(fused._order_ids(nid, data.multi_indices))
+        noise_mask = None
+        nk = self.noise_kernel
+        if nk is not None:
+            if len(set(zip(X.tolist(), ids.tolist()))) != X.shape[0]:
+                raise NotImplementedError(
+                    "DiagonalNoiseKernel on repeated (x, order) rows couples "
+                    f"them off the diagonal; {_GENERIC}"
+                )
+            if nk.n_match is None:
+                mask = np.ones(X.shape[0])
+            elif nk.n_match in data.multi_indices:
+                mask = (nid == data.multi_indices.index(nk.n_match)).astype(float)
+            else:
+                mask = None  # no observation of the matching order
+            if mask is not None:
+                noise_mask = torch.as_tensor(
+                    mask[:, None], dtype=data.dtype, device=data.device
+                )
+        ev = evidence_cuda.make_data(
+            X, ids, data.y, data.err_y.double() ** 2, self.diag_factor,
+            data.device, kind,
+        )
+        plan = _EvidencePlan(ev, n_base, input_warp, noise_mask)
+        self._plan_cache = (data, plan)
+        return plan
 
     def _evidence_data(self, data: Dataset) -> evidence_cuda.EvidenceData:
-        """The dataset's evidence constants, uploaded once and reused while
-        the same `Dataset` comes back (every call of a sampler run)."""
-        if self._evidence_cache is not None and self._evidence_cache[0] is data:
-            return self._evidence_cache[1]
-        ids = fused._order_ids(data.nid, data.multi_indices)
-        ev = evidence_cuda.make_data(
-            data.Xf[:, 0], ids, data.y, data.err_y.double() ** 2,
-            self.diag_factor, data.device,
-        )
-        self._evidence_cache = (data, ev)
-        return ev
+        """The dataset's evidence-kernel constants (`_evidence_plan`)."""
+        return self._evidence_plan(data).ev
+
+    def _evidence_inputs(self, thetaT: torch.Tensor, data: Dataset):
+        """The kernel's inputs from full theta rows thetaT (P, C): its base
+        rows (n_base, C), its constants and the aux channels, each (N, C),
+        computed in torch (as the reference's aux closure,
+        ``gp.py :: _pallas_evidence_fn``)."""
+        plan = self._evidence_plan(data)
+        aux = {}
+        if self.mean is not None:
+            o, s = self._offsets[2], self._sizes[2]
+            aux["mu"] = mean_vector(
+                self.mean, thetaT[o : o + s], data.Xf.to(thetaT.dtype), data.nid,
+                data.multi_indices,
+            )
+        if plan.noise_mask is not None:
+            sn = thetaT[self._offsets[1]]
+            aux["nd"] = (sn * sn)[None, :] * plan.noise_mask.to(thetaT.dtype)
+        if plan.input_warp is not None:
+            w, wp = fused.warp_coords(
+                plan.input_warp, plan.ev.X.to(thetaT.dtype),
+                thetaT[plan.n_base : self._sizes[0]], plan.ev.has_slopes,
+            )
+            aux["w"] = w
+            if wp is not None:
+                aux["wp"] = wp
+        if plan.n_base < thetaT.shape[0]:  # a slice adds a backward node
+            thetaT = thetaT[: plan.n_base]
+        return thetaT, plan.ev, aux
 
     def log_marginal_batch(self, thetas: torch.Tensor, data: Dataset) -> torch.Tensor:
         """Batched log marginal likelihood: thetas (C, P) -> (C,)."""
-        if not self._batch_supported(data):
-            raise NotImplementedError(
-                "only the Gibbs-tanh kernel on 1-D data with orders {0, 1} is "
-                "ported; the generic assembly is ROADMAP Queue 1 item 10"
-            )
         if thetas.device != data.device:
             raise ValueError(f"thetas on {thetas.device}, data on {data.device}")
-        ev = self._evidence_data(data)
+        thetaT, ev, aux = self._evidence_inputs(thetas.T, data)
         if data.device.type == "cuda" and not evidence_cuda.supported(ev.n):
             raise ValueError(
                 f"N = {ev.n} observations exceed the CUDA evidence kernel's "
                 f"N_MAX = {evidence_cuda.N_MAX}"
             )
-        return evidence_cuda.loglik(thetas.T, ev)
+        return evidence_cuda.loglik(thetaT, ev, aux)
 
     def log_posterior_batch(self, thetas: torch.Tensor, data: Dataset) -> torch.Tensor:
         lp = self.log_prior(thetas)

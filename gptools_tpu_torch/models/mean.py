@@ -1,0 +1,146 @@
+"""Parametric prior mean functions, chains-minor.
+
+Counterpart of `gptools_tpu.models.mean` (`MeanFunction`,
+`ConstantMeanFunction`, `LinearMeanFunction`, `MtanhMeanFunction1d`) and of
+the mean half of `gptools_tpu.ops.assemble` (`mean_vector`). Metadata
+(names, bounds, initial values, fixed flags, hyperprior) follows the
+reference. Where the reference evaluates one parameter vector per call
+under ``vmap``, here ``_scalar(X (N, D), thetaT (P, C)) -> (N, C)`` takes
+the whole chain batch, and `mean_vector` takes the slope rows by forward
+mode in x (`torch.func.jvp`). Orders beyond {0, 1} in one dimension, and
+`SumMeanFunction` / `ArbitraryMeanFunction`, are ROADMAP Queue 1 items 10
+and 11.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from gptools_tpu_torch.utils.priors import JointPrior, UniformJointPrior
+
+__all__ = [
+    "MeanFunction",
+    "ConstantMeanFunction",
+    "LinearMeanFunction",
+    "MtanhMeanFunction1d",
+    "mean_vector",
+]
+
+
+class MeanFunction:
+    """Base parametric mean ``m(x, theta)``; the metadata protocol of
+    `gptools_tpu_torch.ops.kernels.Kernel`."""
+
+    def __init__(
+        self,
+        num_dim: int,
+        param_names: Sequence[str],
+        initial_params: Optional[Sequence[float]] = None,
+        fixed_params: Optional[Sequence[bool]] = None,
+        param_bounds: Optional[Sequence[tuple]] = None,
+        hyperprior: Optional[JointPrior] = None,
+        default_bounds: Optional[Sequence[tuple]] = None,
+    ):
+        self.num_dim = int(num_dim)
+        self.param_names = tuple(param_names)
+        k = len(self.param_names)
+        if param_bounds is None:
+            if hyperprior is not None:
+                param_bounds = hyperprior.bounds
+            elif default_bounds is not None:
+                param_bounds = default_bounds
+            else:
+                param_bounds = [(-1e4, 1e4)] * k
+        self.param_bounds = [
+            (-math.inf if lo is None else float(lo), math.inf if hi is None else float(hi))
+            for lo, hi in param_bounds
+        ]
+        if hyperprior is None and k:
+            finite = [
+                (lo if math.isfinite(lo) else -1e6, hi if math.isfinite(hi) else 1e6)
+                for lo, hi in self.param_bounds
+            ]
+            hyperprior = UniformJointPrior(finite)
+        self.hyperprior = hyperprior
+        if initial_params is None:
+            initial_params = [
+                0.5 * (max(lo, -1e2) + min(hi, 1e2)) for lo, hi in self.param_bounds
+            ]
+        self.initial_params = tuple(float(v) for v in initial_params)
+        if fixed_params is None:
+            fixed_params = [False] * k
+        self.fixed_params = tuple(bool(v) for v in fixed_params)
+
+    @property
+    def num_params(self) -> int:
+        return len(self.param_names)
+
+    def _scalar(self, X: torch.Tensor, thetaT: torch.Tensor) -> torch.Tensor:
+        """Mean values at points X (N, D) for chains thetaT (P, C) -> (N, C)."""
+        raise NotImplementedError
+
+
+class ConstantMeanFunction(MeanFunction):
+    """``m(x) = c``."""
+
+    def __init__(self, num_dim: int = 1, **kw):
+        super().__init__(num_dim, ("c",), **kw)
+
+    def _scalar(self, X, thetaT):
+        return thetaT[0][None, :].expand(X.shape[0], thetaT.shape[1])
+
+
+class LinearMeanFunction(MeanFunction):
+    """``m(x) = sum_d a_d x_d + b``; parameters ``(a_1, ..., a_D, b)``."""
+
+    def __init__(self, num_dim: int = 1, **kw):
+        names = tuple(f"a_{d+1}" for d in range(num_dim)) + ("b",)
+        super().__init__(num_dim, names, **kw)
+
+    def _scalar(self, X, thetaT):
+        D = self.num_dim
+        return X @ thetaT[:D] + thetaT[D][None, :]
+
+
+class MtanhMeanFunction1d(MeanFunction):
+    """mtanh pedestal profile: ``z = (x0 - x) / (2 delta)``, ``m(x) =
+    (ped - off)/2 (tanh z + alpha z sigmoid(2z) + 1) + off``; parameters
+    ``(x0, delta, alpha, ped, off)``."""
+
+    def __init__(self, **kw):
+        kw.setdefault(
+            "default_bounds",
+            [(-1e2, 1e2), (1e-4, 1e2), (-1e2, 1e2), (-1e4, 1e4), (-1e4, 1e4)],
+        )
+        super().__init__(1, ("x0", "delta", "alpha", "ped", "off"), **kw)
+
+    def _scalar(self, X, thetaT):
+        x0, delta, alpha, ped, off = (thetaT[p][None, :] for p in range(5))
+        z = (x0 - X[:, :1]) / (2.0 * delta)
+        mt = torch.tanh(z) + alpha * z * torch.sigmoid(2.0 * z)
+        return 0.5 * (ped - off) * (mt + 1.0) + off
+
+
+def mean_vector(mean_fn: MeanFunction, thetaT, X, nid, multi_indices) -> torch.Tensor:
+    """The mean at each observation's derivative order: thetaT (P, C),
+    X (N, D), nid (N,) ids into ``multi_indices`` -> (N, C). One-dimensional
+    orders 0 and 1 only."""
+    out = None
+    for aid, a in enumerate(tuple(tuple(m) for m in multi_indices)):
+        if a == (0,) * len(a):
+            vals = mean_fn._scalar(X, thetaT)
+        elif a == (1,):
+            _, vals = torch.func.jvp(
+                lambda x: mean_fn._scalar(x, thetaT), (X,), (torch.ones_like(X),)
+            )
+        else:
+            raise NotImplementedError(
+                f"mean derivative order {a}: the generic assembly is ROADMAP "
+                "Queue 1 item 10"
+            )
+        rows = (nid == aid)[:, None]
+        out = torch.where(rows, vals, 0.0 if out is None else out)
+    return out

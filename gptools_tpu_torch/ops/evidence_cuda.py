@@ -1,23 +1,37 @@
-"""Gibbs-tanh evidence value-and-gradient: the hand-written CUDA kernel.
+"""GP evidence value-and-gradient: the hand-written CUDA kernel.
 
-Counterpart of `gptools_tpu.ops.evidence_pallas` (kind ``gibbs_tanh``, no
-aux inputs): ``vag(thetaT (5, C)) -> (ll (C,), grad (5, C))`` in the
-reference's chains-minor layout, and `loglik`, a `torch.autograd.Function`
-whose backward is ``g[None, :] * grad`` (the forward already computed the
-gradient).
+Counterpart of `gptools_tpu.ops.evidence_pallas` (kinds ``gibbs_tanh``,
+``se`` and ``matern52``, with the aux channels ``mu``, ``nd``, ``w`` and
+``wp``): ``vag(thetaT (P, C), ev, aux) -> (ll (C,), grad (P, C)[, gaux])``
+in the reference's chains-minor layout, and `loglik`, a
+`torch.autograd.Function` whose backward is ``g * grad`` for theta and
+``g * gaux[name]`` for each aux input (the forward already computed them),
+so autograd chains the aux cotangents through whatever produced the aux
+inputs (mean, noise square, warp), as ``jax.custom_vjp`` does in the
+reference.
+
+Aux channels, each (N, C) in the theta dtype, as in the reference:
+
+- ``mu``: the mean at each observation; dll/dmu = alpha.
+- ``nd``: noise variance added to the diagonal before the jitter; dll/dnd
+  = diag(dll/dK) + the jitter's trace term.
+- ``w``: warped coordinates (``se`` / ``matern52`` only); pairs at
+  d = w_i - w_j.
+- ``wp``: warp slopes, present exactly when ``w`` is and the data hold
+  slope rows; they scale the slope blocks.
 
 Routes, chosen by the device of ``thetaT`` and nothing else:
 
 - CUDA: the kernel in ``csrc/`` (one thread per chain; see
-  ``csrc/gibbs_tanh_chain.cuh``). It is compiled by ``nvcc`` for ``sm_90a``
+  ``csrc/evidence_chain.cuh``). It is compiled by ``nvcc`` for ``sm_90a``
   into a shared library with a plain C interface at the first CUDA call,
   cached under ``gptools_tpu_torch/_build/`` by a hash of the sources, and
   bound with ctypes. A build or launch failure raises.
 - CPU: `loglik_vag_plain`, the plain PyTorch version (fused covariance build
-  + `evidence.loglik_b`, gradient by autograd).
+  + `evidence.loglik_b`, gradients by autograd).
 
 `LAUNCHES` counts kernel launches and `PLAIN_CALLS` calls of the plain
-version, so a run can show which route it took.
+version, per kind, so a run can show which route it took.
 """
 
 from __future__ import annotations
@@ -30,7 +44,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -38,9 +52,12 @@ from gptools_tpu_torch.ops import evidence, fused
 
 __all__ = [
     "EvidenceData",
+    "KINDS",
+    "AUX_NAMES",
     "N_MAX",
     "LAUNCHES",
     "PLAIN_CALLS",
+    "reset_counts",
     "build",
     "supported",
     "make_data",
@@ -50,16 +67,17 @@ __all__ = [
     "loglik",
 ]
 
-N_MAX = 48  # gt::N_MAX in csrc/gibbs_tanh_chain.cuh
-NUM_PARAMS = 5
+N_MAX = 48  # gt::N_MAX in csrc/evidence_chain.cuh
+KINDS = {"gibbs_tanh": 5, "se": 2, "matern52": 2}  # theta rows per kind
+AUX_NAMES = ("mu", "nd", "w", "wp")
 
-LAUNCHES = 0
-PLAIN_CALLS = 0
+LAUNCHES = {k: 0 for k in KINDS}
+PLAIN_CALLS = {k: 0 for k in KINDS}
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
-_SOURCES = ("gibbs_tanh_chain.cuh", "evidence_gibbs_tanh.cu")
+_SOURCES = ("evidence_chain.cuh", "evidence_kernel.cu")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -68,29 +86,47 @@ _LIB = None
 BUILD_INFO: dict = {}
 
 
+def reset_counts() -> None:
+    """Set every launch and plain-call count to 0."""
+    for k in KINDS:
+        LAUNCHES[k] = 0
+        PLAIN_CALLS[k] = 0
+
+
 class EvidenceData(NamedTuple):
     """Observation constants of one dataset, on its device: X, y, err^2
-    (N,) float64 and the derivative-order ids nid (N,) int32 in {0, 1}."""
+    (N,) float64, the derivative-order ids nid (N,) int32 in {0, 1}, and
+    the pair kind of the model's kernel, and whether slope rows exist
+    (read once here, so no call syncs with the device to learn it)."""
 
     X: torch.Tensor
     nid: torch.Tensor
     y: torch.Tensor
     err2: torch.Tensor
     diag_factor: float
+    kind: str = "gibbs_tanh"
+    has_slopes: bool = False
 
     @property
     def n(self) -> int:
         return self.X.shape[0]
 
+    @property
+    def num_params(self) -> int:
+        return KINDS[self.kind]
 
-def make_data(X, nid, y, err2, diag_factor: float, device) -> EvidenceData:
+
+def make_data(X, nid, y, err2, diag_factor: float, device, kind: str = "gibbs_tanh") -> EvidenceData:
     """Upload the constants once; every call reuses the same tensors."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown evidence kind {kind!r}; kinds are {sorted(KINDS)}")
 
     def f64(a):
         return torch.as_tensor(a, dtype=torch.float64, device=device).reshape(-1).contiguous()
 
     nid_t = torch.as_tensor(nid, device=device).reshape(-1).to(torch.int32).contiguous()
-    ev = EvidenceData(f64(X), nid_t, f64(y), f64(err2), float(diag_factor))
+    ev = EvidenceData(f64(X), nid_t, f64(y), f64(err2), float(diag_factor), kind,
+                      bool((nid_t == 1).any()))
     if not ev.n == nid_t.shape[0] == ev.y.shape[0] == ev.err2.shape[0]:
         raise ValueError("X, nid, y and err2 must have the same length")
     if not bool(((nid_t == 0) | (nid_t == 1)).all()):
@@ -112,9 +148,10 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the kernel library if this source hash has not been built;
-    return its path. `BUILD_INFO` records the command, seconds and the
-    compiler's resource report (``-Xptxas -v``)."""
+    """Compile the kernel library (every kind and dtype, one nvcc call) if
+    this source hash has not been built; return its path. `BUILD_INFO`
+    records the command, seconds and the compiler's resource report
+    (``-Xptxas -v``)."""
     h = hashlib.sha256()
     for name in _SOURCES:
         h.update((_CSRC / name).read_bytes())
@@ -125,7 +162,7 @@ def build() -> Path:
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / "evidence_gibbs_tanh.cu")]
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / "evidence_kernel.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
@@ -145,37 +182,62 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        for name in ("gt_gibbs_tanh_evidence_f32", "gt_gibbs_tanh_evidence_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [
-                ctypes.c_int,     # n
-                ctypes.c_void_p,  # X
-                ctypes.c_void_p,  # nid
-                ctypes.c_void_p,  # y
-                ctypes.c_void_p,  # err2
-                ctypes.c_double,  # diag_factor
-                ctypes.c_void_p,  # thetaT
-                ctypes.c_int,     # C
-                ctypes.c_void_p,  # ll
-                ctypes.c_void_p,  # grad
-                ctypes.c_void_p,  # stream
-            ]
-            fn.restype = ctypes.c_int
+        for kind in KINDS:
+            for dt in ("f32", "f64"):
+                fn = getattr(lib, f"gt_{kind}_evidence_{dt}")
+                fn.argtypes = (
+                    [ctypes.c_int]                 # n
+                    + [ctypes.c_void_p] * 4        # X, nid, y, err2
+                    + [ctypes.c_double]            # diag_factor
+                    + [ctypes.c_void_p, ctypes.c_int]  # thetaT, C
+                    + [ctypes.c_void_p] * 4        # mu, nd, w, wp
+                    + [ctypes.c_void_p] * 6        # ll, grad, gmu, gnd, gw, gwp
+                    + [ctypes.c_void_p]            # stream
+                )
+                fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _check_theta(thetaT: torch.Tensor):
+def _check_theta(thetaT: torch.Tensor, ev: EvidenceData):
     if thetaT.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"thetaT must be float32 or float64, got {thetaT.dtype}")
-    if thetaT.ndim != 2 or thetaT.shape[0] != NUM_PARAMS:
-        raise ValueError(f"thetaT must be ({NUM_PARAMS}, C), got {tuple(thetaT.shape)}")
+    P = ev.num_params
+    if thetaT.ndim != 2 or thetaT.shape[0] != P:
+        raise ValueError(
+            f"thetaT must be ({P}, C) for kind {ev.kind}, got {tuple(thetaT.shape)}"
+        )
 
 
-def loglik_vag_cuda(thetaT: torch.Tensor, ev: EvidenceData):
-    """Launch the kernel: thetaT (5, C) on a CUDA device -> (ll, grad)."""
-    global LAUNCHES
-    _check_theta(thetaT)
+def _check_aux(thetaT: torch.Tensor, ev: EvidenceData, aux: dict):
+    """The aux set must be one the reference builds: names among
+    `AUX_NAMES`, ``w`` only for the stationary kinds, ``wp`` exactly when
+    ``w`` is given and slope rows exist; each (N, C) like thetaT."""
+    extra = set(aux) - set(AUX_NAMES)
+    if extra:
+        raise ValueError(f"unknown aux channels {sorted(extra)}; known {AUX_NAMES}")
+    if "w" in aux and ev.kind == "gibbs_tanh":
+        raise ValueError("gibbs_tanh cannot be input-warped (aux 'w')")
+    if ("wp" in aux) != ("w" in aux and ev.has_slopes):
+        raise ValueError(
+            "aux 'wp' is required exactly when 'w' is given and the data hold "
+            "slope rows"
+        )
+    for name, a in aux.items():
+        if a.shape != (ev.n, thetaT.shape[1]) or a.dtype != thetaT.dtype or a.device != thetaT.device:
+            raise ValueError(
+                f"aux {name} must be ({ev.n}, {thetaT.shape[1]}) {thetaT.dtype} "
+                f"on {thetaT.device}, got {tuple(a.shape)} {a.dtype} on {a.device}"
+            )
+
+
+def loglik_vag_cuda(thetaT: torch.Tensor, ev: EvidenceData, aux: Optional[dict] = None):
+    """Launch the kernel: thetaT (P, C) on a CUDA device (P the kind's
+    theta rows) and the aux channels -> (ll, grad), or (ll, grad, gaux)
+    when aux channels are given."""
+    aux = dict(aux or {})
+    _check_theta(thetaT, ev)
+    _check_aux(thetaT, ev, aux)
     if not supported(ev.n):
         raise ValueError(f"N = {ev.n} outside the kernel's range 1..{N_MAX}")
     for name, dtype in (("X", torch.float64), ("nid", torch.int32),
@@ -189,77 +251,104 @@ def loglik_vag_cuda(thetaT: torch.Tensor, ev: EvidenceData):
             )
     if thetaT.device.type != "cuda":
         raise ValueError(f"thetaT must be a CUDA tensor, got {thetaT.device}")
-    if not thetaT.is_contiguous():
-        raise ValueError("thetaT must be contiguous")
+    if not thetaT.is_contiguous() or not all(a.is_contiguous() for a in aux.values()):
+        raise ValueError("thetaT and the aux channels must be contiguous")
     C = thetaT.shape[1]
     ll = torch.empty(C, dtype=thetaT.dtype, device=thetaT.device)
-    grad = torch.empty((NUM_PARAMS, C), dtype=thetaT.dtype, device=thetaT.device)
-    if C == 0:
-        return ll, grad
-    lib = _lib()
-    fn = (
-        lib.gt_gibbs_tanh_evidence_f64
-        if thetaT.dtype == torch.float64
-        else lib.gt_gibbs_tanh_evidence_f32
-    )
-    with torch.cuda.device(thetaT.device):
-        stream = torch.cuda.current_stream(thetaT.device).cuda_stream
-        rc = fn(
-            ev.n, ev.X.data_ptr(), ev.nid.data_ptr(), ev.y.data_ptr(),
-            ev.err2.data_ptr(), ev.diag_factor, thetaT.data_ptr(), C,
-            ll.data_ptr(), grad.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"evidence kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
-    return ll, grad
+    grad = torch.empty_like(thetaT)
+    gaux = {name: torch.empty_like(a) for name, a in aux.items()}
+    if C > 0:
+        lib = _lib()
+        fn = getattr(lib, f"gt_{ev.kind}_evidence_{'f64' if thetaT.dtype == torch.float64 else 'f32'}")
+
+        def ptr(d, name):
+            return d[name].data_ptr() if name in d else None
+
+        with torch.cuda.device(thetaT.device):
+            stream = torch.cuda.current_stream(thetaT.device).cuda_stream
+            rc = fn(
+                ev.n, ev.X.data_ptr(), ev.nid.data_ptr(), ev.y.data_ptr(),
+                ev.err2.data_ptr(), ev.diag_factor, thetaT.data_ptr(), C,
+                *(ptr(aux, a) for a in AUX_NAMES),
+                ll.data_ptr(), grad.data_ptr(),
+                *(ptr(gaux, a) for a in AUX_NAMES),
+                stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"evidence kernel launch failed: cudaError {rc}")
+        LAUNCHES[ev.kind] += 1
+    return (ll, grad, gaux) if aux else (ll, grad)
 
 
-def loglik_vag_plain(thetaT: torch.Tensor, ev: EvidenceData):
+def _plain_cov(ev: EvidenceData, thetaT, aux):
+    """The kernel's covariance (before err^2 and noise) by the fused builds."""
+    X = ev.X.to(thetaT.dtype)
+    if ev.kind == "gibbs_tanh":
+        return fused.gibbs_tanh_cov_fused_soa_sym(X, ev.nid, thetaT)
+    if "w" in aux:
+        return fused.coords_cov_soa_sym(ev.kind, aux["w"], aux.get("wp"), ev.nid, thetaT)
+    if ev.kind == "se":
+        return fused.se_cov_fused_soa_sym(X, ev.nid, thetaT)
+    return fused.matern52_cov_fused_soa_sym(X, ev.nid, thetaT)
+
+
+def loglik_vag_plain(thetaT: torch.Tensor, ev: EvidenceData, aux: Optional[dict] = None):
     """Plain PyTorch version of the kernel on any device: the fused
-    covariance build and `evidence.loglik_b`, gradient by autograd; a
-    non-finite ll gives -inf and a zero gradient, as the kernel does."""
-    global PLAIN_CALLS
-    _check_theta(thetaT)
-    PLAIN_CALLS += 1
+    covariance build, noise on the diagonal, `evidence.loglik_b` on the
+    residual y - mu, gradients into theta and every aux channel by
+    autograd; a non-finite ll gives -inf and zero gradients, as the kernel
+    does. Returns what `loglik_vag_cuda` returns."""
+    aux = dict(aux or {})
+    _check_theta(thetaT, ev)
+    _check_aux(thetaT, ev, aux)
+    PLAIN_CALLS[ev.kind] += 1
     dtype = thetaT.dtype
-    X, y, err2 = (a.to(dtype) for a in (ev.X, ev.y, ev.err2))
+    n, C = ev.n, thetaT.shape[1]
+    y, err2 = ev.y.to(dtype), ev.err2.to(dtype)
     with torch.enable_grad():
         th = thetaT.detach().requires_grad_(True)
-        K = fused.gibbs_tanh_cov_fused_soa_sym(X, ev.nid, th)
-        Kobs = K + torch.diag(err2)[:, :, None]
-        r = y[:, None].expand(ev.n, th.shape[1])
-        ll = evidence.loglik_b(Kobs, r, ev.diag_factor)
-        (grad,) = torch.autograd.grad(ll.sum(), th)
+        ax = {k: v.detach().requires_grad_(True) for k, v in aux.items()}
+        K = _plain_cov(ev, th, ax) + torch.diag(err2)[:, :, None]
+        if "nd" in ax:
+            K = K + torch.diag_embed(ax["nd"].T).permute(1, 2, 0)
+        r = y[:, None] - ax["mu"] if "mu" in ax else y[:, None].expand(n, C)
+        ll = evidence.loglik_b(K, r, ev.diag_factor)
+        grads = torch.autograd.grad(ll.sum(), [th, *ax.values()])
     ll = ll.detach()
     ok = torch.isfinite(ll)
     ll = torch.where(ok, ll, torch.full_like(ll, -math.inf))
-    return ll, torch.where(ok[None, :], grad, 0.0)
+    grad, *gaux = (torch.where(ok[None, :], g, 0.0) for g in grads)
+    if not aux:
+        return ll, grad
+    return ll, grad, dict(zip(ax, gaux))
 
 
-def vag(thetaT: torch.Tensor, ev: EvidenceData):
-    """(ll, grad) by the route of ``thetaT``'s device: the kernel on CUDA,
-    the plain version on CPU; any other device raises."""
+def vag(thetaT: torch.Tensor, ev: EvidenceData, aux: Optional[dict] = None):
+    """(ll, grad[, gaux]) by the route of ``thetaT``'s device: the kernel on
+    CUDA, the plain version on CPU; any other device raises."""
     if thetaT.device.type == "cuda":
-        return loglik_vag_cuda(thetaT, ev)
+        return loglik_vag_cuda(thetaT, ev, aux)
     if thetaT.device.type == "cpu":
-        return loglik_vag_plain(thetaT, ev)
+        return loglik_vag_plain(thetaT, ev, aux)
     raise ValueError(f"no evidence route for device {thetaT.device}")
 
 
 class _Loglik(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, thetaT, ev):
-        ll, grad = vag(thetaT.contiguous(), ev)
-        ctx.save_for_backward(grad)
-        return ll
+    def forward(ctx, ev, names, thetaT, *aux_tensors):
+        aux = {k: a.contiguous() for k, a in zip(names, aux_tensors)}
+        out = vag(thetaT.contiguous(), ev, aux)
+        grads = (out[1], *(out[2][k] for k in names)) if names else (out[1],)
+        ctx.save_for_backward(*grads)
+        return out[0]
 
     @staticmethod
     def backward(ctx, g):
-        (grad,) = ctx.saved_tensors
-        return g[None, :] * grad, None
+        return (None, None, *(g[None, :] * t for t in ctx.saved_tensors))
 
 
-def loglik(thetaT: torch.Tensor, ev: EvidenceData) -> torch.Tensor:
-    """Differentiable ll (C,) of thetaT (5, C); backward is ``g * grad``."""
-    return _Loglik.apply(thetaT, ev)
+def loglik(thetaT: torch.Tensor, ev: EvidenceData, aux: Optional[dict] = None) -> torch.Tensor:
+    """Differentiable ll (C,) of thetaT (P, C) and the aux channels;
+    backward is ``g * grad`` and ``g * gaux``."""
+    names = tuple(aux or ())
+    return _Loglik.apply(ev, names, thetaT, *(aux[k] for k in names))

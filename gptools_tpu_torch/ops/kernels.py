@@ -1,11 +1,12 @@
-"""Covariance-function objects: parameter metadata for the config-4 kernel.
+"""Covariance-function objects: parameter metadata for configs 2-4.
 
 Counterpart of `gptools_tpu.ops.kernels`, reduced to what the batched
 evidence path reads: names, bounds, initial values, fixed flags and the
-hyperprior. The covariance itself is computed by the fused builder
+hyperprior, with the reference's parameter order and defaults. The
+covariance itself is computed by the fused builders
 (`gptools_tpu_torch.ops.fused`) and the CUDA kernel; the generic
 ``smooth_scalar`` / derivative-block surface is ROADMAP Queue 1 item 10 and
-the other kernels and warps are items 9 and 11.
+the other kernels and warps are item 11.
 """
 
 from __future__ import annotations
@@ -13,14 +14,23 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple
 
+from gptools_tpu_torch.models.dataset import normalize_multi_index
 from gptools_tpu_torch.utils.priors import JointPrior, UniformJointPrior
 
 __all__ = [
     "Kernel",
+    "SquaredExponentialKernel",
+    "MaternKernel",
+    "Matern52Kernel",
     "LengthScaleWarp",
     "TanhWarp",
     "GibbsKernel",
     "GibbsKernel1dTanh",
+    "DiagonalNoiseKernel",
+    "InputWarp",
+    "LinearWarp",
+    "BetaWarp",
+    "WarpedKernel",
 ]
 
 
@@ -96,6 +106,51 @@ class Kernel:
     def num_params(self) -> int:
         return len(self.param_names)
 
+    def delta_terms(self):
+        """``(param_offset, DiagonalNoiseKernel)`` white-noise terms."""
+        return []
+
+
+class SquaredExponentialKernel(Kernel):
+    """ARD squared exponential ``sigma_f^2 exp(-|x1 - x2|^2 / (2 l^2))``;
+    parameters ``(sigma_f, l_1, ..., l_D)``."""
+
+    def __init__(self, num_dim: int = 1, **kw):
+        names = ("sigma_f",) + tuple(f"l_{d+1}" for d in range(num_dim))
+        kw.setdefault("default_bounds", [(1e-4, 1e4)] * (num_dim + 1))
+        super().__init__(num_dim, names, **kw)
+
+
+class MaternKernel(Kernel):
+    """Half-integer Matern kernel, ``nu = p + 1/2``; parameters
+    ``(sigma_f, l_1, ..., l_D)``. Only ``p = 2`` (nu = 5/2) has a fused
+    builder and a CUDA kind; other orders are ROADMAP Queue 1 item 11."""
+
+    def __init__(self, nu: float = 2.5, num_dim: int = 1, **kw):
+        two_nu = 2.0 * nu
+        if abs(two_nu - round(two_nu)) > 1e-12 or round(two_nu) % 2 == 0:
+            raise NotImplementedError(
+                "MaternKernel: closed form requires half-integer nu "
+                "(nu = p + 1/2); free nu is ROADMAP Queue 1 item 11"
+            )
+        self.nu = float(nu)
+        self.p = int(round(nu - 0.5))
+        if self.p != 2:
+            raise NotImplementedError(
+                f"MaternKernel nu = {nu}: only nu = 5/2 is ported; the other "
+                "orders are ROADMAP Queue 1 item 11"
+            )
+        names = ("sigma_f",) + tuple(f"l_{d+1}" for d in range(num_dim))
+        kw.setdefault("default_bounds", [(1e-4, 1e4)] * (num_dim + 1))
+        super().__init__(num_dim, names, **kw)
+
+
+class Matern52Kernel(MaternKernel):
+    """Fixed nu = 5/2 Matern."""
+
+    def __init__(self, num_dim: int = 1, **kw):
+        super().__init__(nu=2.5, num_dim=num_dim, **kw)
+
 
 class LengthScaleWarp:
     """Length-scale profile ``l(x) > 0`` for the Gibbs kernel (metadata)."""
@@ -128,3 +183,67 @@ class GibbsKernel1dTanh(GibbsKernel):
 
     def __init__(self, **kw):
         super().__init__(TanhWarp(), **kw)
+
+
+class DiagonalNoiseKernel(Kernel):
+    """White noise ``sigma_n^2`` on matching (x, derivative order) rows,
+    restricted to observations of order ``n`` when one is given
+    (``n_match``); parameter ``(sigma_n,)``."""
+
+    def __init__(self, num_dim: int = 1, n=None, **kw):
+        self.n_match = None if n is None else normalize_multi_index(n, num_dim)
+        kw.setdefault("default_bounds", [(0.0, 1e4)])
+        super().__init__(num_dim, ("sigma_n",), **kw)
+
+    def delta_terms(self):
+        return [(0, self)]
+
+
+class InputWarp:
+    """Monotone coordinate map ``w(x)`` (metadata; the maps live in
+    `fused.warp_coords`)."""
+
+    param_names: Tuple[str, ...] = ()
+    default_bounds: Tuple[tuple, ...] = ()
+
+    @property
+    def num_params(self):
+        return len(self.param_names)
+
+
+class LinearWarp(InputWarp):
+    """``w(x) = (x - a) / (b - a)`` with static a, b."""
+
+    def __init__(self, a: float, b: float):
+        self.a = float(a)
+        self.b = float(b)
+
+
+class BetaWarp(InputWarp):
+    """Beta-CDF warp ``w(x) = I_x(a, b)`` on [0, 1]; parameters (a, b)."""
+
+    param_names = ("a", "b")
+    default_bounds = ((1e-2, 1e2), (1e-2, 1e2))
+
+
+class WarpedKernel(Kernel):
+    """``k(w(x1), w(x2))``: the base kernel's parameters, then the warp's
+    (named ``warp.*``), with the reference's defaults for initial values,
+    fixed flags and bounds."""
+
+    def __init__(self, base: Kernel, warp: InputWarp, **kw):
+        if base.delta_terms():
+            raise ValueError("cannot warp a kernel containing delta terms")
+        self.base = base
+        self.input_warp = warp
+        names = base.param_names + tuple(f"warp.{n}" for n in warp.param_names)
+        kw.setdefault(
+            "initial_params",
+            base.initial_params
+            + tuple(Kernel._default_initial(lo, hi) for lo, hi in warp.default_bounds),
+        )
+        kw.setdefault("fixed_params", base.fixed_params + (False,) * warp.num_params)
+        kw.setdefault(
+            "param_bounds", list(base.param_bounds) + list(warp.default_bounds)
+        )
+        super().__init__(base.num_dim, names, **kw)

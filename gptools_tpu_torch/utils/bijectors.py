@@ -1,11 +1,11 @@
 """Bijectors from the unconstrained sampler space to constrained hyperparameters.
 
-Counterpart of `gptools_tpu.utils.bijectors` (config-4 subset). Every method
-works on a batch directly: ``u`` and ``x`` have shape ``(..., dim)`` and
-``log_det_jac`` reduces the last axis, so a ``(C, P)`` stack of chains needs
-no vmap. The other bijectors of the reference (`ExpBijector`,
-`NegExpBijector`, `IdentityBijector`, `OrderedIntervalBijector`) are
-ROADMAP Queue 1 item 11.
+Counterpart of `gptools_tpu.utils.bijectors` (the subset configs 2-4 use).
+Every method works on a batch directly: ``u`` and ``x`` have shape
+``(..., dim)`` and ``log_det_jac`` reduces the last axis, so a ``(C, P)``
+stack of chains needs no vmap. The other bijectors of the reference
+(`ExpBijector`, `NegExpBijector`, `OrderedIntervalBijector`) are ROADMAP
+Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "Bijector",
+    "IdentityBijector",
     "SoftplusBijector",
     "SigmoidBijector",
     "ConcatBijector",
@@ -43,6 +44,22 @@ class Bijector:
     def log_det_jac(self, u: torch.Tensor) -> torch.Tensor:
         """log |det d forward / d u| at ``u``: shape ``u.shape[:-1]``."""
         raise NotImplementedError
+
+
+class IdentityBijector(Bijector):
+    """``x = u`` on the whole real line."""
+
+    def __init__(self, dim: int = 1):
+        self.dim = dim
+
+    def forward(self, u):
+        return u
+
+    def inverse(self, x):
+        return x
+
+    def log_det_jac(self, u):
+        return torch.zeros(u.shape[:-1], dtype=u.dtype, device=u.device)
 
 
 class SoftplusBijector(Bijector):
@@ -118,7 +135,8 @@ class ConcatBijector(Bijector):
 
 def interval_bijector(lo: float, hi: float) -> Bijector:
     """The canonical scalar bijector for one interval (as the reference:
-    sigmoid on a finite box, softplus on a half-line)."""
+    sigmoid on a finite box, softplus on a half-line, identity on the
+    whole line)."""
     lo_f = lo if lo is not None else -math.inf
     hi_f = hi if hi is not None else math.inf
     finite_lo = math.isfinite(lo_f)
@@ -127,10 +145,11 @@ def interval_bijector(lo: float, hi: float) -> Bijector:
         return SigmoidBijector(lo_f, hi_f)
     if finite_lo:
         return SoftplusBijector(lo_f)
-    raise NotImplementedError(
-        f"interval ({lo_f}, {hi_f}) needs NegExpBijector or IdentityBijector: "
-        "ROADMAP Queue 1 item 11"
-    )
+    if finite_hi:
+        raise NotImplementedError(
+            f"interval ({lo_f}, {hi_f}) needs NegExpBijector: ROADMAP Queue 1 item 11"
+        )
+    return IdentityBijector()
 
 
 def bijector_from_bounds(bounds: Sequence[tuple]) -> Bijector:

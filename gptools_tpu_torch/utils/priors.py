@@ -1,7 +1,7 @@
 """Hyperpriors over (slices of) the flat hyperparameter vector.
 
-Counterpart of `gptools_tpu.utils.priors` (config-4 subset: product,
-uniform and log-normal priors). ``log_prob`` takes ``theta`` of shape
+Counterpart of `gptools_tpu.utils.priors` (the subset configs 2-4 use:
+product, uniform, normal and log-normal priors). ``log_prob`` takes ``theta`` of shape
 ``(..., dim)`` and returns ``theta.shape[:-1]``; evaluating outside the
 support gives ``-inf`` with a finite gradient. ``sample`` draws from an
 explicit `torch.Generator` on that generator's device. The rest of the
@@ -22,6 +22,7 @@ __all__ = [
     "JointPrior",
     "ProductJointPrior",
     "UniformJointPrior",
+    "NormalJointPrior",
     "LogNormalJointPrior",
 ]
 
@@ -141,6 +142,37 @@ class UniformJointPrior(JointPrior):
     @property
     def bounds(self):
         return list(zip(self.lb, self.ub))
+
+
+class NormalJointPrior(JointPrior):
+    """Independent normals on the whole real line."""
+
+    def __init__(self, mu, sigma, dim: int | None = None):
+        k = _dim_of(mu, sigma, dim)
+        self.mu = _as_tuple(mu, k)
+        self.sigma = _as_tuple(sigma, k)
+        if any(s <= 0 for s in self.sigma):
+            raise ValueError("sigma must be positive")
+        self.dim = k
+
+    def log_prob(self, theta):
+        mu = torch.tensor(self.mu, dtype=theta.dtype, device=theta.device)
+        sig = torch.tensor(self.sigma, dtype=theta.dtype, device=theta.device)
+        z = (theta - mu) / sig
+        return (-0.5 * z * z - torch.log(sig) - _HALF_LOG_2PI).sum(-1)
+
+    def sample(self, generator, shape, dtype):
+        dev = generator.device
+        mu = torch.tensor(self.mu, dtype=dtype, device=dev)
+        sig = torch.tensor(self.sigma, dtype=dtype, device=dev)
+        z = torch.randn(
+            tuple(shape) + (self.dim,), generator=generator, dtype=dtype, device=dev
+        )
+        return mu + sig * z
+
+    @property
+    def bounds(self):
+        return [(-math.inf, math.inf)] * self.dim
 
 
 class LogNormalJointPrior(JointPrior):

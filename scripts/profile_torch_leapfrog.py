@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Where one leapfrog's time goes in the PyTorch + CUDA port, on the card.
+
+For each config, in float32 at the chain count `chip_smoke.py` runs it:
+
+- the SMC warm start alone (`infer.smc.sample`, 1024 particles): wall and
+  rounds;
+- one leapfrog step as ChEES takes it (`infer.hmc.leapfrog` on the
+  whitened density ``vs @ C.T + mu -> log_posterior_u_batch``, one value
+  and gradient per step) at posterior-typical positions: host wall per step
+  over 50 steps after warm-up, then under `torch.profiler` over 20 steps the
+  device time of all kernels and of the evidence kernel, the device's busy
+  share, and the kernel launches, host-to-device copies and
+  synchronizations per step.
+
+    python scripts/profile_torch_leapfrog.py                # configs 4 2 3
+    python scripts/profile_torch_leapfrog.py --configs 3 --steps 100
+
+Prints the card line and one JSON object per config. Needs a CUDA device.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+CHAINS = {4: 12288, 2: 4096, 3: 4096}
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def profile_config(config, steps, prof_steps, card, dev):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gptools_tpu_torch import configs
+    from gptools_tpu_torch.infer import chees, hmc, smc
+    from gptools_tpu_torch.ops import evidence_cuda
+
+    dtype = torch.float32
+    C = CHAINS[config]
+    prob = configs.ALL_CONFIGS[config](dtype=dtype, device=dev)
+    model, data = prob.model, prob.data
+
+    # SMC warm start alone, the kernel already built
+    evidence_cuda.build()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smc_res = smc.sample(model, data, gen, num_particles=1024)
+    torch.cuda.synchronize()
+    smc_wall = time.perf_counter() - t0
+
+    # leapfrog steps on the whitened density at the SMC particles
+    with torch.no_grad():
+        particles = smc_res.u[0]
+        idx = torch.randint(0, particles.shape[0], (C,), generator=gen, device=dev)
+        mu = particles.mean(0)
+        cov = torch.cov(particles.T) + 1e-8 * torch.eye(particles.shape[1], dtype=dtype, device=dev)
+        Ch = torch.linalg.cholesky(cov)
+        q = torch.linalg.solve_triangular(Ch, (particles[idx] - mu).T, upper=False).T
+
+    def logp_w(vs):
+        return model.log_posterior_u_batch(vs @ Ch.T + mu, data)
+
+    vg = chees._value_and_grad(logp_w)
+    inv_mass = torch.ones(q.shape[1], dtype=dtype, device=dev)
+    p = torch.randn(q.shape, generator=gen, device=dev, dtype=dtype)
+    eps = torch.tensor(0.05, dtype=dtype, device=dev)
+
+    def run(n, q, p, g):
+        for _ in range(n):
+            q, p, _, g = hmc.leapfrog(vg, q, p, eps, inv_mass, grad=g)
+        return q, p, g
+
+    with torch.no_grad():
+        _, g = vg(q)
+        q, p, g = run(10, q, p, g)
+        torch.cuda.synchronize()
+        evidence_cuda.reset_counts()
+        t0 = time.perf_counter()
+        q, p, g = run(steps, q, p, g)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+        launches = dict(evidence_cuda.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            q, p, g = run(prof_steps, q, p, g)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+
+    n_launch = n_copy = n_sync = 0
+    dev_us = ev_us = 0.0
+    for a in prof.key_averages():
+        if a.key in LAUNCH_CALLS:
+            n_launch += a.count
+        elif a.key.startswith("cudaMemcpy"):
+            n_copy += a.count
+        elif a.key in SYNC_CALLS:
+            n_sync += a.count
+        if str(getattr(a, "device_type", "")).endswith("CUDA"):
+            t = getattr(a, "self_device_time_total", None)
+            t = getattr(a, "self_cuda_time_total", 0.0) if t is None else t
+            dev_us += t
+            if "evidence_kernel" in a.key:
+                ev_us += t
+    return {
+        "config": config,
+        "dtype": "float32",
+        "chains": C,
+        "smc_wall_s": smc_wall,
+        "smc_rounds": smc_res.diagnostics["num_rounds"],
+        "leapfrog_wall_ms": wall_ms,
+        "evidence_launches_per_step": {k: v / steps for k, v in launches.items()},
+        "profiled_steps": prof_steps,
+        "profiled_wall_ms_per_step": 1e3 * prof_wall / prof_steps,
+        "device_ms_per_step": 1e-3 * dev_us / prof_steps,
+        "evidence_kernel_ms_per_step": 1e-3 * ev_us / prof_steps,
+        "device_busy_share": (1e-3 * dev_us / prof_steps) / wall_ms,
+        "kernel_launches_per_step": n_launch / prof_steps,
+        "memcpy_calls_per_step": n_copy / prof_steps,
+        "syncs_per_step": n_sync / prof_steps,
+        "card": card,
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--configs", type=int, nargs="*", default=[4, 2, 3])
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--prof-steps", type=int, default=20)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_leapfrog: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(card)
+    for c in args.configs:
+        row = profile_config(c, args.steps, args.prof_steps, card, torch.device("cuda", 0))
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -57,5 +57,5 @@ def test_port_config4_equals_jax_config4():
             getattr(tp.data, name).numpy(), np.asarray(getattr(jp.data, name))
         )
     assert tp.data.multi_indices == jp.data.multi_indices
-    f32 = tconfigs.config4_gibbs_smc(dtype=torch.float32)
+    f32 = tconfigs.config4_gibbs_smc(dtype=torch.float32, device="cpu")
     assert f32.data.y.dtype == torch.float32 and f32.data.device.type == "cpu"

@@ -4,16 +4,30 @@ one). Imports no jax, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
 Kernel vs plain version on the same device: float64 at ll rtol 1e-9, grad
-rtol 1e-7 / atol 1e-9 on posterior-typical draws; float32 within the
-tolerances stated in chip_smoke.py.
+(and every aux cotangent) rtol 1e-7 / atol 1e-9 on posterior-typical
+draws; float32 within the tolerances stated in chip_smoke.py. Config 4
+holds kind gibbs_tanh; configs 2 and 3 hold kinds se and matern52 with the
+aux channels their models build (none; mu and w), and the se_noise and
+warped_se_deriv models hold nd, w and wp.
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
 from gptools_tpu_torch import configs
+from gptools_tpu_torch.models.dataset import DatasetBuilder
+from gptools_tpu_torch.models.gp import GPModel
 from gptools_tpu_torch.ops import evidence_cuda
+from gptools_tpu_torch.ops.kernels import (
+    BetaWarp,
+    DiagonalNoiseKernel,
+    SquaredExponentialKernel,
+    WarpedKernel,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -44,9 +58,9 @@ def _draws(C, dtype, dev, seed=0):
 def test_kernel_matches_plain_f64(dev, problem, C):
     _, ev = problem
     th = _draws(C, torch.float64, dev, seed=C)
-    n0 = evidence_cuda.LAUNCHES
+    n0 = evidence_cuda.LAUNCHES["gibbs_tanh"]
     llk, gk = evidence_cuda.vag(th, ev)
-    assert evidence_cuda.LAUNCHES == n0 + 1
+    assert evidence_cuda.LAUNCHES["gibbs_tanh"] == n0 + 1
     llp, gp = evidence_cuda.loglik_vag_plain(th, ev)
     np.testing.assert_allclose(llk.cpu().numpy(), llp.cpu().numpy(), rtol=1e-9)
     np.testing.assert_allclose(gk.cpu().numpy(), gp.cpu().numpy(), rtol=1e-7, atol=1e-9)
@@ -76,11 +90,12 @@ def test_model_gradient_through_kernel(dev, problem):
     """GPModel on a CUDA Dataset takes the kernel; backward is g * grad."""
     prob, ev = problem
     th = _draws(16, torch.float64, dev, seed=3).T.contiguous().requires_grad_(True)
-    n0, p0 = evidence_cuda.LAUNCHES, evidence_cuda.PLAIN_CALLS
+    n0, p0 = dict(evidence_cuda.LAUNCHES), dict(evidence_cuda.PLAIN_CALLS)
     ll = prob.model.log_marginal_batch(th, prob.data)
     ct = torch.linspace(0.5, 2.0, 16, dtype=torch.float64, device=dev)
     (g,) = torch.autograd.grad(ll, th, ct)
-    assert evidence_cuda.LAUNCHES == n0 + 1 and evidence_cuda.PLAIN_CALLS == p0
+    assert evidence_cuda.LAUNCHES["gibbs_tanh"] == n0["gibbs_tanh"] + 1
+    assert evidence_cuda.PLAIN_CALLS == p0
     llp, gp = evidence_cuda.loglik_vag_plain(th.detach().T.contiguous(), ev)
     np.testing.assert_allclose(
         g.cpu().numpy(), (ct[:, None] * gp.T).cpu().numpy(), rtol=1e-7, atol=1e-9
@@ -92,3 +107,121 @@ def test_model_raises_beyond_kernel_range(dev):
     th = _draws(4, torch.float64, dev).T.contiguous()
     with pytest.raises(ValueError, match="N_MAX"):
         prob.model.log_marginal_batch(th, prob.data)
+
+
+# ---- kinds se and matern52, with the aux channels ---------------------------
+
+
+def _golden_draws(config, C, dtype, dev, seed):
+    """Golden mean +- 1 std (uniform): thetas (C, P)."""
+    path = os.path.join(os.path.dirname(__file__), f"golden_config{config}.json")
+    with open(path) as f:
+        gold = json.load(f)
+    gm, gs = np.asarray(gold["mean"]), np.asarray(gold["std"])
+    th = gm + gs * np.random.default_rng(seed).uniform(-1.0, 1.0, (C, gm.shape[0]))
+    return torch.tensor(th, dtype=dtype, device=dev)
+
+
+def _variant(name, dev):
+    """The se_noise / warped_se_deriv models of the reference's
+    tests/test_evidence_pallas.py::_model_variants on seeded data."""
+    rng = np.random.default_rng(5)
+    lo, hi = (0.0, 1.2) if name == "se_noise" else (0.05, 0.95)
+    b = DatasetBuilder(1)
+    X = np.sort(rng.uniform(lo, hi, 7))
+    b.add(X, np.sin(X), err_y=0.1)
+    b.add(np.array([lo, hi]), np.zeros(2), err_y=0.05, n=1)
+    if name == "se_noise":
+        model = GPModel(SquaredExponentialKernel(), noise_kernel=DiagonalNoiseKernel(n=0))
+    else:
+        model = GPModel(WarpedKernel(SquaredExponentialKernel(), BetaWarp()))
+    return model, b.build(torch.float64, dev)
+
+
+def _inputs(model, data, thetas):
+    with torch.no_grad():
+        thT, ev, aux = model._evidence_inputs(thetas.T, data)
+    return thT.contiguous(), ev, {k: v.contiguous() for k, v in aux.items()}
+
+
+def _assert_kernel_matches_plain_f64(model, data, thetas):
+    thT, ev, aux = _inputs(model, data, thetas)
+    n0, p0 = dict(evidence_cuda.LAUNCHES), dict(evidence_cuda.PLAIN_CALLS)
+    outk = evidence_cuda.vag(thT, ev, aux)
+    assert evidence_cuda.LAUNCHES[ev.kind] == n0[ev.kind] + 1
+    assert evidence_cuda.PLAIN_CALLS == p0  # a CUDA tensor never takes the plain version
+    outp = evidence_cuda.loglik_vag_plain(thT, ev, aux)
+    np.testing.assert_allclose(outk[0].cpu().numpy(), outp[0].cpu().numpy(), rtol=1e-9)
+    np.testing.assert_allclose(outk[1].cpu().numpy(), outp[1].cpu().numpy(),
+                               rtol=1e-7, atol=1e-9)
+    for k in aux:
+        np.testing.assert_allclose(outk[2][k].cpu().numpy(), outp[2][k].cpu().numpy(),
+                                   rtol=1e-7, atol=1e-9, err_msg=k)
+
+
+@pytest.fixture(scope="module", params=[2, 3], ids=["config2_se", "config3_matern52"])
+def stationary(dev, request):
+    return request.param, configs.ALL_CONFIGS[request.param](dtype=torch.float64, device=dev)
+
+
+@pytest.mark.parametrize("C", [1, 63, 1000])
+def test_stationary_kernel_matches_plain_f64(dev, stationary, C):
+    config, prob = stationary
+    thetas = _golden_draws(config, C, torch.float64, dev, seed=C)
+    _assert_kernel_matches_plain_f64(prob.model, prob.data, thetas)
+
+
+@pytest.mark.parametrize("name", ["se_noise", "warped_se_deriv"])
+def test_aux_variant_kernel_matches_plain_f64(dev, name):
+    model, data = _variant(name, dev)
+    rng = np.random.default_rng(6)
+    thetas = torch.tensor(rng.uniform(0.4, 1.2, (63, model.num_params)), device=dev)
+    _assert_kernel_matches_plain_f64(model, data, thetas)
+
+
+def test_stationary_kernel_matches_plain_f32(dev, stationary):
+    config, prob = stationary
+    thetas = _golden_draws(config, 4096, torch.float32, dev, seed=1)
+    thT, ev, aux = _inputs(prob.model, prob.data, thetas)
+    outk = evidence_cuda.loglik_vag_cuda(thT, ev, aux)
+    outp = evidence_cuda.loglik_vag_plain(thT, ev, aux)
+    assert float(((outk[0] - outp[0]).abs() / outp[0].abs().clamp(min=1.0)).max()) <= 1e-3
+    gk = [outk[1]] + [outk[2][k] for k in aux]
+    gp = [outp[1]] + [outp[2][k] for k in aux]
+    for a, b in zip(gk, gp):
+        assert float(((a - b).norm(dim=0) / b.norm(dim=0)).max()) <= 1e-2
+
+
+def test_stationary_failure_contract(dev, stationary):
+    """A NaN theta gives ll = -inf and zeros in the gradient and in every
+    aux cotangent of that chain only."""
+    config, prob = stationary
+    for dtype in (torch.float32, torch.float64):
+        thetas = _golden_draws(config, 6, dtype, dev, seed=2)
+        thetas[1, 0] = float("nan")
+        thT, ev, aux = _inputs(prob.model, prob.data, thetas)
+        out = evidence_cuda.loglik_vag_cuda(thT, ev, aux)
+        gs = [out[1]] + [out[2][k] for k in aux]
+        assert float(out[0][1]) == -float("inf")
+        assert bool(torch.isfinite(out[0][[0, 2, 3, 4, 5]]).all())
+        for g in gs:
+            assert bool((g[:, 1] == 0).all()) and bool(torch.isfinite(g).all())
+
+
+def test_stationary_model_gradient_through_kernel(dev, stationary):
+    """GPModel on the card takes the kernel alone, and autograd chains its
+    aux cotangents through the mean and the warp: the theta gradient equals
+    the CPU model's (plain version, autograd end to end)."""
+    config, prob = stationary
+    cpu = configs.ALL_CONFIGS[config](dtype=torch.float64, device="cpu")
+    thetas = _golden_draws(config, 16, torch.float64, dev, seed=3)
+    ct = torch.linspace(0.5, 2.0, 16, dtype=torch.float64)
+    n0, p0 = dict(evidence_cuda.LAUNCHES), dict(evidence_cuda.PLAIN_CALLS)
+    th = thetas.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(prob.model.log_marginal_batch(th, prob.data), th, ct.to(dev))
+    kind = "se" if config == 2 else "matern52"
+    assert evidence_cuda.LAUNCHES[kind] == n0[kind] + 1
+    assert evidence_cuda.PLAIN_CALLS == p0
+    th_c = thetas.cpu().requires_grad_(True)
+    (g_c,) = torch.autograd.grad(cpu.model.log_marginal_batch(th_c, cpu.data), th_c, ct)
+    np.testing.assert_allclose(g.cpu().numpy(), g_c.numpy(), rtol=1e-7, atol=1e-9)

@@ -123,5 +123,5 @@ def test_free_fixed_plumbing_matches_jax(rng):
 
 
 def test_unported_model_parts_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         TGPModel(TGibbs(), noise_kernel=object())

@@ -1,9 +1,10 @@
 """The CUDA kernel's per-chain body, compiled for the host, against the
 plain PyTorch version (autograd), float64 at 1e-10.
 
-`gptools_tpu_torch/csrc/gibbs_tanh_chain.cuh` holds the whole per-chain
-algorithm, with hand-derived gradients; `gibbs_tanh_chain_host.cpp` builds
-it with the host C++ compiler. Skips when no C++ compiler is installed.
+`gptools_tpu_torch/csrc/evidence_chain.cuh` holds the whole per-chain
+algorithm for every pair kind and aux channel, with hand-derived gradients;
+`evidence_chain_host.cpp` builds it with the host C++ compiler. Skips when
+no C++ compiler is installed.
 """
 
 import ctypes
@@ -27,40 +28,49 @@ CSRC = os.path.join(
 )
 GOLD_MEAN = np.array([0.6053, 1.0609, 0.2892, 0.0413, 0.9208])
 GOLD_STD = np.array([0.2216, 0.2118, 0.1234, 0.0181, 0.0272])
+AUX = evidence_cuda.AUX_NAMES
 
 
 @pytest.fixture(scope="module")
 def body(tmp_path_factory):
+    """``run(thetaT, ev, aux=None) -> (ll, grad, gaux)`` through the host
+    build of the kind's per-chain body (numpy in, numpy out)."""
     cxx = shutil.which("c++") or shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
     so = tmp_path_factory.mktemp("chain") / "libchain.so"
     subprocess.run(
         [cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(so),
-         os.path.join(CSRC, "gibbs_tanh_chain_host.cpp")],
+         os.path.join(CSRC, "evidence_chain_host.cpp")],
         check=True, capture_output=True, timeout=300,
     )
     lib = ctypes.CDLL(str(so))
-    fn = lib.gt_gibbs_tanh_chain_host_f64
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-        ctypes.c_double, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    fns = {}
+    for kind in evidence_cuda.KINDS:
+        fn = getattr(lib, f"gt_{kind}_chain_host_f64")
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+            ctypes.c_double, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 10
+        fn.restype = ctypes.c_int
+        fns[kind] = fn
 
-    def run(thetaT, ev):
+    def ptr(a):
+        return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+    def run(thetaT, ev, aux=None):
+        aux = {k: np.ascontiguousarray(v, np.float64) for k, v in (aux or {}).items()}
         thetaT = np.ascontiguousarray(thetaT, np.float64)
         C = thetaT.shape[1]
         ll = np.empty(C)
-        grad = np.empty((5, C))
+        grad = np.empty_like(thetaT)
+        gaux = {k: np.empty_like(v) for k, v in aux.items()}
         arrs = [ev.X.numpy(), ev.nid.numpy(), ev.y.numpy(), ev.err2.numpy()]
-        ptr = [a.ctypes.data_as(ctypes.c_void_p) for a in arrs]
-        rc = fn(ev.n, *ptr, ev.diag_factor,
-                thetaT.ctypes.data_as(ctypes.c_void_p), C,
-                ll.ctypes.data_as(ctypes.c_void_p),
-                grad.ctypes.data_as(ctypes.c_void_p))
+        rc = fns[ev.kind](
+            ev.n, *(ptr(a) for a in arrs), ev.diag_factor, ptr(thetaT), C,
+            *(ptr(aux.get(k)) for k in AUX), ptr(ll), ptr(grad),
+            *(ptr(gaux.get(k)) for k in AUX),
+        )
         assert rc == 0
-        return ll, grad
+        return ll, grad, gaux
 
     return run
 
@@ -77,15 +87,20 @@ def _draws(rng, C):
     return np.concatenate([prior, post]).T.copy()  # (5, C)
 
 
-def _check(body, thetaT, ev):
-    ll_b, g_b = body(thetaT, ev)
-    ll_p, g_p = evidence_cuda.loglik_vag_plain(torch.tensor(thetaT), ev)
-    np.testing.assert_allclose(ll_b, ll_p.numpy(), rtol=1e-10, atol=0.0)
-    np.testing.assert_allclose(g_b, g_p.numpy(), rtol=1e-10, atol=1e-10)
+def _check(body, thetaT, ev, aux=None):
+    ll_b, g_b, ga_b = body(thetaT, ev, aux)
+    out = evidence_cuda.loglik_vag_plain(
+        torch.tensor(thetaT), ev, {k: torch.tensor(v) for k, v in (aux or {}).items()}
+    )
+    np.testing.assert_allclose(ll_b, out[0].numpy(), rtol=1e-10, atol=0.0)
+    np.testing.assert_allclose(g_b, out[1].numpy(), rtol=1e-10, atol=1e-10)
+    for k in aux or {}:
+        np.testing.assert_allclose(ga_b[k], out[2][k].numpy(), rtol=1e-10,
+                                   atol=1e-10, err_msg=k)
 
 
 def test_body_matches_plain_at_config4(body):
-    prob = configs.config4_gibbs_smc()
+    prob = configs.config4_gibbs_smc(device="cpu")
     ev = prob.model._evidence_data(prob.data)
     _check(body, _draws(np.random.default_rng(11), 32), ev)
 
@@ -106,7 +121,7 @@ def test_body_matches_plain_every_selector(body, seed):
 def test_body_jitter_trace_term(body):
     """Large amplitudes put the mean diagonal above 1, where the jitter
     depends on K and adds its trace term to the diagonal cotangent."""
-    prob = configs.config4_gibbs_smc()
+    prob = configs.config4_gibbs_smc(device="cpu")
     ev = prob.model._evidence_data(prob.data)
     thetaT = _draws(np.random.default_rng(4), 8)
     thetaT[0] = np.linspace(1.5, 4.0, 8)
@@ -114,13 +129,81 @@ def test_body_jitter_trace_term(body):
 
 
 def test_body_failure_contract(body):
-    prob = configs.config4_gibbs_smc()
+    prob = configs.config4_gibbs_smc(device="cpu")
     ev = prob.model._evidence_data(prob.data)
     thetaT = _draws(np.random.default_rng(5), 4)
     thetaT[2, 1] = np.nan
-    ll, g = body(thetaT, ev)
+    ll, g, _ = body(thetaT, ev)
     assert ll[1] == -np.inf and (g[:, 1] == 0).all()
     assert np.isfinite(ll[[0, 2, 3]]).all() and np.isfinite(g).all()
     bad = evidence_cuda.make_data(ev.X, ev.nid, ev.y, -ev.err2 * 1e4, 1e2, "cpu")
-    ll, g = body(thetaT, bad)  # non-positive pivots
+    ll, g, _ = body(thetaT, bad)  # non-positive pivots
     assert (ll == -np.inf).all() and (g == 0).all()
+
+
+def _stationary_problem(rng, kind, slopes: bool, n_val=8):
+    """Values on (0, 1) with slope rows interleaved (two at repeated x, as
+    in config 2), or values only; X sorted so a monotone warp keeps the
+    order."""
+    X = np.sort(rng.uniform(0.05, 0.95, n_val))
+    nid = np.zeros(n_val, int)
+    if slopes:
+        X = np.sort(np.concatenate([X, X[[0, -1]], rng.uniform(0.1, 0.9, 2)]))
+        nid = np.zeros(X.shape[0], int)
+        nid[[0, -1]] = 1  # slope at the repeated end points
+        nid[rng.choice(np.arange(2, X.shape[0] - 2), 2, replace=False)] = 1
+    n = X.shape[0]
+    y = rng.standard_normal(n)
+    return evidence_cuda.make_data(X, nid, y, np.full(n, 0.01), 1e2, "cpu", kind)
+
+
+def _aux_channels(rng, ev, C, names):
+    """Aux inputs (N, C): a mean, a noise variance and a monotone warp
+    w = x^p with its slope p x^(p-1), per chain."""
+    X = ev.X.numpy()[:, None]
+    p = rng.uniform(0.6, 1.6, C)[None, :]
+    vals = {
+        "mu": 0.3 * rng.standard_normal((ev.n, C)),
+        "nd": rng.uniform(0.001, 0.05, (ev.n, C)),
+        "w": X**p,
+        "wp": p * X ** (p - 1.0),
+    }
+    return {k: vals[k] for k in names}
+
+
+_AUX_SETS = [(), ("mu", "nd"), ("mu", "nd", "w", "wp"), ("w",)]
+
+
+@pytest.mark.parametrize("kind", ["se", "matern52"])
+@pytest.mark.parametrize("names", _AUX_SETS, ids=lambda t: "+".join(t) or "none")
+def test_body_matches_plain_stationary(body, kind, names):
+    """SE and Matern-5/2 with every aux channel: theta gradient and every
+    cotangent at 1e-10, on theta draws with scale above 1 in half of them
+    (the jitter's trace term live)."""
+    rng = np.random.default_rng([_AUX_SETS.index(names), kind == "se"])
+    ev = _stationary_problem(rng, kind, slopes="w" not in names or "wp" in names)
+    C = 10
+    thetaT = np.stack([rng.uniform(0.3, 2.5, C), rng.uniform(0.15, 1.2, C)])
+    _check(body, thetaT, ev, _aux_channels(rng, ev, C, names))
+
+
+def test_body_matches_plain_gibbs_with_mean_and_noise(body):
+    rng = np.random.default_rng(9)
+    n = 10
+    X = np.sort(rng.uniform(0.0, 1.2, n))
+    nid = rng.permutation([0] * 7 + [1] * 3)
+    ev = evidence_cuda.make_data(X, nid, rng.standard_normal(n), np.full(n, 0.02), 1e2, "cpu")
+    _check(body, rng.uniform(0.3, 1.4, (5, 8)), ev, _aux_channels(rng, ev, 8, ("mu", "nd")))
+
+
+@pytest.mark.parametrize("kind", ["se", "matern52"])
+def test_body_failure_contract_zeroes_aux(body, kind):
+    rng = np.random.default_rng(3)
+    ev = _stationary_problem(rng, kind, slopes=True)
+    aux = _aux_channels(rng, ev, 4, AUX)
+    thetaT = np.stack([rng.uniform(0.3, 2.5, 4), rng.uniform(0.15, 1.2, 4)])
+    aux["nd"][3, 2] = -1e3  # a negative pivot in chain 2
+    ll, g, ga = body(thetaT, ev, aux)
+    assert ll[2] == -np.inf and (g[:, 2] == 0).all()
+    assert all((v[:, 2] == 0).all() for v in ga.values())
+    assert np.isfinite(ll[[0, 1, 3]]).all()
