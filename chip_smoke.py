@@ -7,9 +7,9 @@ Phases (any failure raises and exits non-zero; no phase falls back):
 
 1. device: needs CUDA; prints the card's name and power limit
    (``nvidia-smi``); TF32 off for matmul and cuDNN.
-2. build: compiles the evidence kernel, every kind and dtype, from
-   ``gptools_tpu_torch/csrc`` with one ``nvcc`` call for ``sm_90a`` (into
-   ``gptools_tpu_torch/_build``).
+2. build: compiles the evidence kernel and the covariance kernel, every
+   kind and dtype, from ``gptools_tpu_torch/csrc`` with one ``nvcc`` call
+   for ``sm_90a`` (into ``gptools_tpu_torch/_build``).
 3. kernel parity, kernel vs plain PyTorch version on the card, on the
    inputs the main paths give it (theta rows and aux channels from
    `GPModel._evidence_inputs`): config 4 (kind gibbs_tanh, N = 27) at
@@ -19,6 +19,14 @@ Phases (any failure raises and exits non-zero; no phase falls back):
    gradient and aux cotangents rtol 1e-7 / atol 1e-9; float32: the bounds
    below; the -inf contract on every output; CUDA-event times of kernel and
    plain version at the main paths' C, and the kernel's bound.
+3b. covariance-kernel parity, kernel vs plain PyTorch version (the fused
+   single-theta builders) on the card: config 4 (gibbs_tanh, N = 27) and
+   config 2 (se, N = 32) at theta batch B = 1 and 512 (the MCMC
+   predictor's ``max_samples``), and both kinds at (B, N) = (256, 1024)
+   (the configs at 1022 points); thetas from the golden posteriors.
+   float64: max |dK| / max |K| <= 1e-12, float32 <= 1e-5; value-value
+   entries exactly symmetric; CUDA-event times of kernel and plain version
+   and the kernel's bound.
 4. main paths in float32, each with the launch counts set to 0 just before
    and read just after: config 4 through ``smc_then_chees`` at 12288 chains
    (75 warmup + 300 samples), configs 2 and 3 at 4096 chains (100 + 500);
@@ -28,6 +36,17 @@ Phases (any failure raises and exits non-zero; no phase falls back):
 5. the same pipelines in float64, with the same gates and the posterior
    moments held to tests/golden_config{4,2,3}.json by the rule of
    scripts/f32_parity.py (why not in float32: see the comment at phase 5).
+6. serving, configs 4 and 2 in float64, the covariance kernel's main path,
+   with its launch counts set to 0 just before and read just after: from
+   phase 5's posterior draws, a ``FrozenMCMCPredictor`` (``max_samples``
+   512) and a ``FrozenPredictor`` at the posterior mean on
+   ``GPModel(..., cov_backend="pallas")`` answer 20 requests of 200 grid
+   points each, alternating n = 0 (the profile) and n = 1 (its gradient).
+   The states must go through the kernel (launches > 0, plain calls 0);
+   every answer is held to the same predictors on ``cov_backend="fused"``
+   (rtol 1e-9); state-build and per-request times of both backends, and
+   (reported, not gated) the share of config 4's true profile within
+   +-2 predictive std.
 
 The last three lines of standard output are the card line, the kernel
 table as JSON and ``{"ok": true, "device": {...}}``.
@@ -68,6 +87,19 @@ PEAK_BYTES = 3.35e12
 PAIR_FLOPS = {"gibbs_tanh": 150, "se": 45, "matern52": 55}
 SOURCE = "gptools_tpu_torch/csrc/evidence_kernel.cu"
 REPLACES = "gptools_tpu/ops/evidence_pallas.py:475"
+COV_SOURCE = "gptools_tpu_torch/csrc/cov_kernel.cu"
+COV_REPLACES = "gptools_tpu/ops/pallas_cov.py:98"
+# flops of one covariance entry per block sel (0 value-value, 1 and 2
+# value-slope, 3 slope-slope), counted from csrc/cov_entry.cuh and the pair
+# functions it calls (a transcendental or a division counts as one; ids
+# outside {0, 1} cost nothing), and of the per-point tanh warp
+COV_FLOPS = {"se": (9, 12, 12, 12), "gibbs_tanh": (15, 35, 35, 58)}
+COV_POINT_FLOPS = {"se": 0, "gibbs_tanh": 13}
+COV_KIND_OF = {4: "gibbs_tanh", 2: "se"}
+SERVE_REQUESTS = 20
+SERVE_POINTS = 200
+SERVE_MAX_SAMPLES = 512
+SERVE_BUILDS = 5
 # config -> (pipeline chains, warmup, samples, parity C values)
 PATHS = {4: (12288, 75, 300, (12288, 1000)), 2: (4096, 100, 500, (4096, 1000)),
          3: (4096, 100, 500, (4096, 1000))}
@@ -140,6 +172,25 @@ def bound(ev, thetaT, aux):
     nbytes = (C * item * (2 * thetaT.shape[0] + 1 + 2 * n * len(aux))
               + n * (3 * 8 + 4))
     t_ops = flops / PEAK_FLOPS[str(thetaT.dtype).replace("torch.", "")]
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def cov_bound(kind, nid, B, item):
+    """(bound_ms, bound_by) of one covariance-kernel call: the flops the
+    entries of this nid need (`COV_FLOPS` per block, `COV_POINT_FLOPS` per
+    point) over the dtype's peak, against its bytes (the B N^2 output
+    written once; X, nid and theta read once) over the bandwidth."""
+    ids = nid.cpu().numpy()
+    n = ids.shape[0]
+    ok = (ids == 0) | (ids == 1)
+    sel = (2 * ids[:, None] + ids[None, :])[ok[:, None] & ok[None, :]]
+    per_theta = sum(int((sel == k).sum()) * f for k, f in enumerate(COV_FLOPS[kind]))
+    flops = B * (per_theta + n * COV_POINT_FLOPS[kind])
+    from gptools_tpu_torch.ops import cov_cuda
+
+    nbytes = B * n * n * item + n * (8 + 4) + B * cov_cuda.KINDS[kind] * item
+    t_ops = flops / PEAK_FLOPS["float64" if item == 8 else "float32"]
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -271,7 +322,8 @@ def golden_rule(config, th, ess):
 
 def run_pipeline(config, dtype, dev, card, enforce_golden):
     """One config through smc_then_chees on the card; its evidence must go
-    through its kernel alone. Returns that kernel's launch count."""
+    through its kernel alone. Returns that kernel's launch count and the
+    draws, thetas (chains, samples, P)."""
     import torch
 
     from gptools_tpu_torch import configs
@@ -330,7 +382,170 @@ def run_pipeline(config, dtype, dev, card, enforce_golden):
           f" -> {verdict}")
     if enforce_golden and not ok:
         fail(f"{tag}: posterior moments disagree with tests/golden_config{config}.json")
-    return launches[kind]
+    return launches[kind], th
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+
+
+def profiled(fn, reps):
+    """Per call of ``fn`` over ``reps`` calls under ``torch.profiler``, as
+    scripts/profile_torch_leapfrog.py counts them: {kernel name: self device
+    us} and the kernel launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev, launches = {}, 0
+    for a in prof.key_averages():
+        if a.key in LAUNCH_CALLS:
+            launches += a.count
+        if str(getattr(a, "device_type", "")).endswith("CUDA"):
+            t = getattr(a, "self_device_time_total", None)
+            t = getattr(a, "self_cuda_time_total", 0.0) if t is None else t
+            dev[a.key] = dev.get(a.key, 0.0) + t / reps
+    return dev, launches / reps
+
+
+def device_us(fn, name, reps=20):
+    """Device microseconds per call of the kernels whose name holds
+    ``name`` (the CUDA-event time of a call also holds its host overhead,
+    which sets it at small shapes); None when the profiler saw none."""
+    dev, _ = profiled(fn, reps)
+    t = sum(v for k, v in dev.items() if name in k)
+    return t if t > 0 else None
+
+
+def cov_parity(kind, X, nid, thetas, card, time_plain_reps=30):
+    """Covariance kernel vs its plain version on one (B, N) in float64 and
+    float32: the error bound, exact symmetry of the value-value block,
+    CUDA-event medians and the bound. The plain version runs in theta
+    chunks of 32 for the comparison and whole for its time (at (256, 1024)
+    in float64 its intermediates take some tens of GB; it fits the 80 GB
+    card). Returns {dtype: (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)}."""
+    import torch
+
+    from gptools_tpu_torch.ops import cov_cuda
+
+    B, n = thetas.shape[0], X.shape[0]
+    vv = (nid[:, None] == 0) & (nid[None, :] == 0)
+    out = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        th = thetas.to(dtype)
+        K = cov_cuda.cov_cuda(kind, X, nid, th)
+        torch.cuda.synchronize()
+        err = kmax = 0.0
+        for c in range(0, B, 32):
+            Kp = cov_cuda.cov_plain(kind, X, nid, th[c:c + 32])
+            err = max(err, float((K[c:c + 32] - Kp).abs().max()))
+            kmax = max(kmax, float(Kp.abs().max()))
+            del Kp
+        sym = bool(((K == K.mT) | ~vv).all())
+        tag = f"phase3b {kind} (B, N) = ({B}, {n}) {str(dtype).replace('torch.', '')}"
+        print(f"{tag}: max |dK| / max |K| = {err / kmax:.3e} (tol {tol:g}), "
+              f"value-value block exactly symmetric: {sym}")
+        if not err / kmax <= tol or not sym:
+            fail(f"{tag}: kernel/plain disagree or the value-value block is not symmetric")
+        del K
+        t_k = cuda_ms(lambda: cov_cuda.cov_cuda(kind, X, nid, th))
+        t_p = cuda_ms(lambda: cov_cuda.cov_plain(kind, X, nid, th),
+                      reps=time_plain_reps, warm=1)
+        b_ms, b_by = cov_bound(kind, nid, B, th.element_size())
+        dev_us = device_us(lambda: cov_cuda.cov_cuda(kind, X, nid, th), "cov_kernel")
+        dev_txt = "not measured" if dev_us is None else f"{dev_us:.3f} us"
+        print(f"{tag}: kernel {t_k:.4f} ms per call (device time {dev_txt} per "
+              f"launch, profiler), plain {t_p:.4f} ms, bound "
+              f"{b_ms * 1e3:.3f} us ({b_by}); kernel call at {100 * b_ms / t_k:.2f}% of "
+              f"the bound (median of 30, CUDA events; {card})")
+        out[dtype] = (err, t_k, t_p, b_ms, b_by)
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve(config, thetas, dev, card):
+    """Phase 6 for one config: the pallas-backend predictors on phase 5's
+    draws, gated on the covariance kernel's launches, held to the fused
+    backend. Returns the kernel's launch count."""
+    import torch
+
+    from gptools_tpu_torch import configs
+    from gptools_tpu_torch.models.gp import GPModel
+    from gptools_tpu_torch.models.serve import FrozenMCMCPredictor, FrozenPredictor
+    from gptools_tpu_torch.ops import cov_cuda
+
+    kind = COV_KIND_OF[config]
+    prob = configs.ALL_CONFIGS[config](dtype=torch.float64, device=dev)
+    draws = thetas.reshape(-1, prob.model.num_params).double()
+    lo, hi = float(prob.data.Xf.min()), float(prob.data.Xf.max())
+    grid = np.linspace(lo, hi, SERVE_POINTS)
+    models = {b: GPModel(prob.model.kernel, cov_backend=b) for b in ("pallas", "fused")}
+    for model in models.values():  # one untimed build and request each (first-call costs)
+        FrozenMCMCPredictor(model, prob.data, draws, max_samples=SERVE_MAX_SAMPLES)(grid)
+    answers, times = {}, {}
+    for backend, model in models.items():
+        torch.cuda.synchronize()
+        cov_cuda.reset_counts()
+        builds = []
+        for _ in range(SERVE_BUILDS):
+            t0 = time.perf_counter()
+            mcmc = FrozenMCMCPredictor(model, prob.data, draws, max_samples=SERVE_MAX_SAMPLES)
+            point = FrozenPredictor(model, prob.data, draws.mean(0))
+            torch.cuda.synchronize()
+            builds.append(1e3 * (time.perf_counter() - t0))
+        build_ms = float(np.median(builds))
+        req_ms, outs = [], []
+        for r in range(SERVE_REQUESTS):
+            t0 = time.perf_counter()
+            outs.append(mcmc(grid, n=r % 2) + point(grid, n=r % 2))
+            torch.cuda.synchronize()
+            req_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = dict(cov_cuda.LAUNCHES)
+        plain_calls = sum(cov_cuda.PLAIN_CALLS.values())
+        dev, n_launch = profiled(lambda: mcmc(grid, n=1), 3)
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:3]
+        print(f"phase6 config{config} {backend}: one MCMC request (n = 1) under the "
+              f"profiler: device busy {1e-3 * sum(dev.values()):.3f} ms, "
+              f"{n_launch:.0f} kernel launches; top kernels "
+              f"{[(k[:60], round(1e-3 * v, 3)) for k, v in top]} (ms)")
+        answers[backend] = outs
+        times[backend] = (build_ms, float(np.median(req_ms)))
+        print(f"phase6 config{config} {backend}: states of {mcmc.thetas.shape[0]} "
+              f"posterior draws + the posterior mean built in {build_ms:.3f} ms "
+              f"(median of {SERVE_BUILDS} builds); "
+              f"{SERVE_REQUESTS} requests of {SERVE_POINTS} points (MCMC + point "
+              f"predictor, n alternating 0/1): median {times[backend][1]:.3f} ms, "
+              f"max {max(req_ms):.3f} ms; covariance-kernel launches {launches}, "
+              f"plain-version calls {plain_calls} ({card})")
+        if backend == "pallas":
+            if launches[kind] <= 0 or plain_calls != 0:
+                fail(f"config{config}: the serving states did not go through the "
+                     f"{kind} covariance kernel alone")
+            pallas_launches = launches[kind]
+    # |a - b| <= 1e-9 |b| + 1e-12 max|b| on every answer; worst ratio printed
+    worst = 0.0
+    for a_req, b_req in zip(answers["pallas"], answers["fused"]):
+        for a, b in zip(a_req, b_req):
+            if not bool(torch.isfinite(a).all()) or a.shape != (SERVE_POINTS,):
+                fail(f"config{config}: bad answer shape {tuple(a.shape)} or non-finite")
+            allowed = 1e-9 * b.abs() + 1e-12 * float(b.abs().max())
+            worst = max(worst, float(((a - b).abs() / allowed).max()))
+    print(f"phase6 config{config}: pallas vs fused answers, max |a - b| / (1e-9 |b| + "
+          f"1e-12 max|b|) = {worst:.3e} (must be <= 1)")
+    if not worst <= 1.0:
+        fail(f"config{config}: pallas and fused serving answers disagree")
+    if config == 4:
+        mean, std = answers["pallas"][0][0], answers["pallas"][0][1]
+        truth = configs._pedestal_profile(grid)
+        inside = np.abs(mean.cpu().numpy() - truth) <= 2.0 * std.cpu().numpy()
+        print(f"phase6 config4: {100 * inside.mean():.1f}% of the true profile lies "
+              f"within +-2 predictive std of the MCMC predictor (reported, not gated)")
+    return pallas_launches
 
 
 def main():
@@ -360,7 +575,8 @@ def main():
     if info.get("cmd"):
         print(f"phase2 cmd: {info['cmd']}")
     for line in info.get("log", "").splitlines():
-        if "registers" in line or "stack frame" in line or "Compiling" in line:
+        if ("registers" in line or "stack frame" in line or "Compiling" in line
+                or "smem" in line):
             print(f"phase2 ptxas: {line.strip()}")
 
     # ---- phase 3: kernel parity and times --------------------------------
@@ -395,11 +611,45 @@ def main():
         err = parity(tag, m, d, th)
         neg_inf_contract(tag, m, d, th)
         table["se"]["max_abs_err"] = max(table["se"]["max_abs_err"], err)
+        # the nd and wp channels are on no config's path: timed here at the
+        # configs' C = 4096
+        for dtype in (torch.float32, torch.float64):
+            thT, ev, aux = kernel_inputs(m, d, torch.tensor(
+                rng.uniform(0.4, 1.2, (4096, m.num_params)), dtype=dtype, device=dev))
+            t_k = cuda_ms(lambda: evidence_cuda.loglik_vag_cuda(thT, ev, aux))
+            t_p = cuda_ms(lambda: evidence_cuda.loglik_vag_plain(thT, ev, aux))
+            b_ms, b_by = bound(ev, thT, aux)
+            print(f"phase3 time {tag} se C=4096 N={ev.n} aux={sorted(aux)} {dtype}: "
+                  f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms * 1e3:.3f} us "
+                  f"({b_by}); kernel at {100 * b_ms / t_k:.2f}% of the bound (median "
+                  f"of 30, CUDA events; {card})")
+
+    # ---- phase 3b: covariance-kernel parity and times --------------------
+    cov_table = {}
+    for config in (4, 2):
+        k = COV_KIND_OF[config]
+        errs = []
+        for B in (1, SERVE_MAX_SAMPLES):
+            prob = configs.ALL_CONFIGS[config](dtype=torch.float64, device=dev)
+            res = cov_parity(k, prob.data.Xf.reshape(-1), prob.data.nid,
+                             posterior_draws(config, B, torch.float64, dev, seed=B), card)
+            errs.append(res[torch.float64][0])
+            if B == SERVE_MAX_SAMPLES:
+                err, t_k, t_p, b_ms, b_by = res[torch.float64]
+                cov_table[k] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+        big = configs.ALL_CONFIGS[config](n_points=1022, dtype=torch.float64, device=dev)
+        res = cov_parity(k, big.data.Xf.reshape(-1), big.data.nid,
+                         posterior_draws(config, 256, torch.float64, dev, seed=256), card,
+                         time_plain_reps=5)
+        errs.append(res[torch.float64][0])
+        cov_table[k]["max_abs_err"] = max(errs)  # float64, as the row's times
+        del big, res
+        torch.cuda.empty_cache()
 
     # ---- phase 4: main paths (float32, as the reference's bench) ---------
     for config in (4, 2, 3):
         table[KIND_OF[config]]["launches"] = run_pipeline(
-            config, torch.float32, dev, card, enforce_golden=False)
+            config, torch.float32, dev, card, enforce_golden=False)[0]
 
     # ---- phase 5: the same pipelines in float64 against the x64 goldens --
     # In float32 the reference's own relative jitter (100 * eps32 * max(mean
@@ -409,8 +659,14 @@ def main():
     # and at 12288 chains the run's own standard error is small enough that
     # the shift exceeds 4 of the golden's standard errors. The goldens are
     # float64 posteriors, so their rule is held in float64.
+    draws = {}
     for config in (4, 2, 3):
-        run_pipeline(config, torch.float64, dev, card, enforce_golden=True)
+        _, draws[config] = run_pipeline(config, torch.float64, dev, card,
+                                        enforce_golden=True)
+
+    # ---- phase 6: serving through the covariance kernel ------------------
+    for config in (4, 2):
+        cov_table[COV_KIND_OF[config]]["launches"] = serve(config, draws[config], dev, card)
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -425,7 +681,19 @@ def main():
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
-    } for k, row in table.items()]}))
+    } for k, row in table.items()] + [{
+        "name": f"{k}_cov",
+        "route": "cuda",
+        "source": COV_SOURCE,
+        "replaces": COV_REPLACES,
+        "launches": row["launches"],
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],  # float64 at (512, N), the serving path's dtype and B
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,  # no single PyTorch call builds this matrix
+    } for k, row in cov_table.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -17,6 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gptools_tpu_torch.models.dataset import resolve_device
+
 __all__ = [
     "BaselineProblem",
     "config2_se_deriv_nuts",
@@ -40,17 +42,6 @@ class BaselineProblem:
     truth: dict
 
 
-def _device(device) -> torch.device:
-    """The device to build on; the card must be there when it is asked for."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the configs build on the card by default; pass "
-            "device='cpu' for the CPU"
-        )
-    return dev
-
-
 def config2_se_deriv_nuts(
     seed: int = 0,
     n_points: int = 30,
@@ -63,7 +54,7 @@ def config2_se_deriv_nuts(
     from gptools_tpu_torch.ops.kernels import SquaredExponentialKernel
     from gptools_tpu_torch.utils.priors import LogNormalJointPrior
 
-    dev = _device(device)
+    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     X = np.linspace(0, 3, n_points)
     f = np.sin(1.5 * X)
@@ -106,7 +97,7 @@ def config3_matern_mean_warp_hmc(
         UniformJointPrior,
     )
 
-    dev = _device(device)
+    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     X = np.linspace(0.02, 0.98, n_points)
     f = 0.8 * X + 0.3 * np.sin(8.0 * X**2)
@@ -150,7 +141,7 @@ def config4_gibbs_smc(
     from gptools_tpu_torch.ops.kernels import GibbsKernel1dTanh
     from gptools_tpu_torch.utils.priors import LogNormalJointPrior, UniformJointPrior
 
-    dev = _device(device)
+    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     x = np.linspace(0.0, 1.2, n_points)
     prof = _pedestal_profile(x)

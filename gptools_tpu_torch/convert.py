@@ -112,7 +112,7 @@ def _mean_from_jax(m):
 def model_from_jax(model) -> GPModel:
     """A `gptools_tpu.models.gp.GPModel` as a `GPModel`: kernel, noise
     kernel and mean types, prior parts, initial and fixed parameters,
-    bounds and ``diag_factor``."""
+    bounds, ``diag_factor`` and ``cov_backend``."""
     nk = getattr(model, "noise_kernel", None)
     mu = getattr(model, "mean", None)
     return GPModel(
@@ -120,4 +120,5 @@ def model_from_jax(model) -> GPModel:
         noise_kernel=None if nk is None else _kernel_from_jax(nk),
         mean=None if mu is None else _mean_from_jax(mu),
         diag_factor=model.diag_factor,
+        cov_backend=getattr(model, "cov_backend", "auto"),
     )

@@ -95,11 +95,21 @@ GT_HD float m_sqrt(float x) { return sqrtf(x); }
 GT_HD double m_sqrt(double x) { return sqrt(x); }
 GT_HD float m_tanh(float x) { return tanhf(x); }
 GT_HD double m_tanh(double x) { return tanh(x); }
+// a product the compiler may not fuse into a later add (fma(a, a, b*b) and
+// fma(b, b, a*a) differ in the last bit, so a*a + b*b would not commute)
+#ifdef __CUDA_ARCH__
+GT_HD float m_mul(float a, float b) { return __fmul_rn(a, b); }
+GT_HD double m_mul(double a, double b) { return __dmul_rn(a, b); }
+#else
+GT_HD float m_mul(float a, float b) { return a * b; }
+GT_HD double m_mul(double a, double b) { return a * b; }
+#endif
 #else
 template <typename T> inline T m_exp(T x) { return std::exp(x); }
 template <typename T> inline T m_log(T x) { return std::log(x); }
 template <typename T> inline T m_sqrt(T x) { return std::sqrt(x); }
 template <typename T> inline T m_tanh(T x) { return std::tanh(x); }
+template <typename T> inline T m_mul(T a, T b) { return a * b; }
 #endif
 
 // x - x is 0 for finite x and NaN for +-inf and NaN (IEEE; the kernel is
@@ -124,12 +134,14 @@ struct Aux {
 
 // ---- Gibbs-tanh pairs ----------------------------------------------------
 
-// One lower-triangle covariance entry: sel 0 = value-value, 1 = value-slope
-// (column derivative), 2 = slope-value (row derivative), 3 = slope-slope.
-// Same expressions as _gibbs_pair in the reference kernel.
+// One covariance entry: sel 0 = value-value, 1 = value-slope (column
+// derivative), 2 = slope-value (row derivative), 3 = slope-slope. Same
+// expressions as _gibbs_pair in the reference kernel. The value-value entry
+// is symmetric to the bit under swapping (la, dla) with (lb, dlb) and d
+// with -d: u + v commutes (see m_mul) and 2 la lb is exact in either order.
 template <typename T>
 GT_HD T gibbs_pair_value(T sf, T la, T dla, T lb, T dlb, T d, int sel) {
-  const T u = la * la, v = lb * lb;
+  const T u = m_mul(la, la), v = m_mul(lb, lb);
   const T inv_S = T(1) / (u + v);
   const T k = (sf * sf) * m_sqrt(T(2) * la * lb * inv_S) * m_exp(-(d * d) * inv_S);
   if (sel == 0) return k;

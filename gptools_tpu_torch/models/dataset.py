@@ -13,7 +13,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["Dataset", "DatasetBuilder"]
+__all__ = ["Dataset", "DatasetBuilder", "resolve_device"]
 
 MultiIndex = Tuple[int, ...]
 
@@ -38,6 +38,18 @@ def normalize_multi_index(n, num_dim: int) -> MultiIndex:
     if any(v < 0 for v in t):
         raise ValueError("derivative orders must be >= 0")
     return t
+
+
+def resolve_device(device) -> torch.device:
+    """The device to build on; the card must be there when it is asked for
+    (the configs and the wrapper build on the card by default)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: data are built on the card by default; pass "
+            "device='cpu' for the CPU"
+        )
+    return dev
 
 
 class Dataset:

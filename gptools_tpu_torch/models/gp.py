@@ -1,43 +1,90 @@
-"""GP model: parameter bookkeeping and the batched densities.
+"""GP core: the model spec, its densities, prediction and the wrapper.
 
-Counterpart of the `GPModel` batch surface of `gptools_tpu.models.gp`,
-with its theta layout ``[kernel | noise kernel | mean]``. All densities
-take a chain batch: ``thetas (C, P)`` or ``us (C, Pf)`` -> ``(C,)``.
+Counterpart of `gptools_tpu.models.gp`, with its theta layout
+``[kernel | noise kernel | mean]``.
 
-The evidence always goes through the evidence kernel (`ops.evidence_cuda`)
-under the reference's eligibility rules for its fused Pallas kernel
-(`_pallas_evidence_fn`): a classified kernel (SE, Matern-5/2, Gibbs-tanh,
-the stationary ones optionally under a BetaWarp / LinearWarp), any ported
-mean function, an optional `DiagonalNoiseKernel` whose rows are purely
-diagonal, 1-D data with orders {0, 1}. Only the kernel's base rows go to
-the kernel; the mean (``mu``), the noise variance (``nd``) and the warped
-coordinates (``w``, ``wp``) are computed here in torch and enter as aux
-channels, and autograd chains the kernel's aux cotangents through them.
-A CUDA `Dataset` takes the kernel (N <= its N_MAX or the call raises), a
-CPU `Dataset` its plain version.
+`GPModel` has two surfaces:
 
-The reference falls back to its generic XLA path outside those rules. The
-port has no generic path yet, so there it raises `NotImplementedError`
-(ROADMAP Queue 1 item 10): other kernels, noise kernels other than a
-purely diagonal `DiagonalNoiseKernel`, and observation transforms (T).
-The single-theta surface and the `GaussianProcess` wrapper are item 12.
+- the batch surface the samplers drive: ``thetas (C, P)`` or
+  ``us (C, Pf)`` -> ``(C,)`` (`log_marginal_batch`, `log_posterior_batch`,
+  `log_posterior_u_batch`);
+- the single-theta surface: `compute_K_L_alpha_ll`, `log_marginal`,
+  `log_posterior`, `log_posterior_u`, `predict` and `draw_sample`. Each
+  takes theta (P,), or a leading batch (B, P) where the reference
+  ``vmap``s it.
+
+The batch evidence always goes through the evidence kernel
+(`ops.evidence_cuda`) under the reference's eligibility rules for its
+fused Pallas kernel (`_pallas_evidence_fn`): a classified kernel (SE,
+Matern-5/2, Gibbs-tanh, the stationary ones optionally under a BetaWarp /
+LinearWarp), any ported mean function, an optional `DiagonalNoiseKernel`
+whose rows are purely diagonal, 1-D data with orders {0, 1}. Only the
+kernel's base rows go to the kernel; the mean (``mu``), the noise variance
+(``nd``) and the warped coordinates (``w``, ``wp``) are computed here in
+torch and enter as aux channels, and autograd chains the kernel's aux
+cotangents through them. A CUDA `Dataset` takes the kernel (N <= its N_MAX
+or the call raises), a CPU `Dataset` its plain version. Outside those
+rules the reference falls back to its generic XLA path; the port raises
+`NotImplementedError` (ROADMAP Queue 1 item 10).
+
+The single-theta covariance follows ``cov_backend`` as in the reference:
+``"fused"`` (the fused builders), ``"pallas"`` (the covariance kernel
+`ops.cov_cuda` on the card, its plain version on the CPU; SE and
+Gibbs-tanh only, the other kinds take the fused build) or ``"generic"``
+(`ops.assemble`); ``"auto"`` resolves to ``"fused"``. Predictions build
+the star-data and star-star blocks with the generic assembly on every
+backend, as the reference does. `GaussianProcess` is the reference's
+stateful wrapper; `models.serve` holds the frozen predictors.
+
+Not ported: ``solve_dtype`` (ROADMAP Queue 1 item 12), transformed
+observations T (item 10), ``optimize_hyperparameters`` (item 13).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from gptools_tpu_torch.models.dataset import Dataset
+from gptools_tpu_torch.models.dataset import (
+    Dataset,
+    DatasetBuilder,
+    normalize_multi_index,
+    resolve_device,
+)
 from gptools_tpu_torch.models.mean import MeanFunction, mean_vector
-from gptools_tpu_torch.ops import evidence_cuda, fused
+from gptools_tpu_torch.ops import assemble, evidence, evidence_cuda, fused
 from gptools_tpu_torch.ops.kernels import DiagonalNoiseKernel, Kernel
+from gptools_tpu_torch.utils.bounds import CombinedBounds, MaskedBounds
 
-__all__ = ["GPModel"]
+__all__ = ["GPModel", "GaussianProcess", "Prediction"]
 
 _GENERIC = "the generic assembly is ROADMAP Queue 1 item 10"
+
+# cov_backend="auto" resolves as the reference does (gptools_tpu/models/
+# gp.py:50), a choice the reference made from its own TPU measurement.
+# chip_smoke.py times both backends on the H100 (phase 6); change this only
+# on those numbers.
+_AUTO_COV_BACKEND = "fused"
+_COV_BACKENDS = ("auto", "generic", "fused", "pallas")
+
+
+class Prediction(NamedTuple):
+    """Posterior predictive summary (the reference's ``predict`` tuple)."""
+
+    mean: torch.Tensor
+    std: Optional[torch.Tensor] = None
+    cov: Optional[torch.Tensor] = None
+
+
+def _merge_multi_indices(base: Tuple, extra) -> Tuple:
+    """Union of multi-index tables, keeping the base ids."""
+    table = list(base)
+    for m in extra:
+        if m not in table:
+            table.append(m)
+    return tuple(table)
 
 
 class _EvidencePlan(NamedTuple):
@@ -65,16 +112,23 @@ class GPModel:
         noise_kernel: Optional[Kernel] = None,
         mean: Optional[MeanFunction] = None,
         diag_factor: float = 1e2,
+        solve_dtype=None,
+        cov_backend: str = "auto",
     ):
         if noise_kernel is not None and type(noise_kernel) is not DiagonalNoiseKernel:
             raise NotImplementedError(
                 f"noise kernel {type(noise_kernel).__name__}: only "
                 f"DiagonalNoiseKernel is ported; {_GENERIC}"
             )
+        if solve_dtype is not None:
+            raise NotImplementedError("solve_dtype is ROADMAP Queue 1 item 12")
+        if cov_backend not in _COV_BACKENDS:
+            raise ValueError(f"unknown cov_backend {cov_backend!r}")
         self.kernel = kernel
         self.noise_kernel = noise_kernel
         self.mean = mean
         self.diag_factor = float(diag_factor)
+        self.cov_backend = cov_backend
 
         sizes = (
             kernel.num_params,
@@ -87,26 +141,29 @@ class GPModel:
 
         names = [f"k.{n}" for n in kernel.param_names]
         fixed = list(kernel.fixed_params)
-        bounds = list(kernel.param_bounds)
+        bound_views = [kernel.param_bounds]
         init = list(kernel.initial_params)
         parts = [kernel.hyperprior]
         if noise_kernel:
             names += [f"noise.{n}" for n in noise_kernel.param_names]
             fixed += list(noise_kernel.fixed_params)
-            bounds += list(noise_kernel.param_bounds)
+            bound_views.append(noise_kernel.param_bounds)
             init += list(noise_kernel.initial_params)
             if noise_kernel.num_params:
                 parts.append(noise_kernel.hyperprior)
         if mean:
             names += [f"mu.{n}" for n in mean.param_names]
             fixed += list(mean.fixed_params)
-            bounds += list(mean.param_bounds)
+            bound_views.append(mean.param_bounds)
             init += list(mean.initial_params)
             if mean.num_params and mean.hyperprior is not None:
                 parts.append(mean.hyperprior)
         self.param_names = tuple(names)
         self.fixed_params = tuple(fixed)
-        self.param_bounds = bounds
+        # a live view over the components' own bounds lists: writing through
+        # it mutates the owning kernel or mean (the bijector and the prior
+        # keep what they saw when the model was built)
+        self.param_bounds = CombinedBounds(*bound_views)
         self.initial_params = tuple(init)
         self.free_idx = tuple(i for i, f in enumerate(self.fixed_params) if not f)
         self.num_free_params = len(self.free_idx)
@@ -116,6 +173,18 @@ class GPModel:
         self.hyperprior = prior
         self.bijector = self.hyperprior.bijector()
         self._plan_cache = None  # (Dataset, _EvidencePlan) last used
+
+    # -- theta slicing (last axis) -------------------------------------------
+    def _theta_k(self, theta):
+        return theta[..., : self._sizes[0]]
+
+    def _theta_noise(self, theta):
+        o = self._offsets[1]
+        return theta[..., o : o + self._sizes[1]]
+
+    def _theta_mean(self, theta):
+        o = self._offsets[2]
+        return theta[..., o : o + self._sizes[2]]
 
     # -- free/fixed embedding (last axis) ------------------------------------
     def _full(self, free: torch.Tensor, fill: torch.Tensor) -> torch.Tensor:
@@ -256,3 +325,547 @@ class GPModel:
         thetas = self.bijector.forward(u_full)
         ldj = self.bijector.log_det_jac(u_full)
         return self.log_posterior_batch(thetas, data) + ldj
+
+    # -- single-theta surface -------------------------------------------------
+    def _check_device(self, theta: torch.Tensor, data: Dataset) -> None:
+        if theta.device != data.device:
+            raise ValueError(f"theta on {theta.device}, data on {data.device}")
+
+    def _mean_at(self, theta, X, nid, multi_indices):
+        """The mean at points X (N, D) of orders nid: theta (P,) -> (N,),
+        (B, P) -> (B, N), through the chains-minor `mean_vector`."""
+        tm = self._theta_mean(theta)
+        Xt = X.to(theta.dtype)
+        if theta.ndim == 1:
+            return mean_vector(self.mean, tm[:, None], Xt, nid, multi_indices)[:, 0]
+        return mean_vector(self.mean, tm.T, Xt, nid, multi_indices).T
+
+    def _latent_cov(self, theta, data: Dataset, include_noise: bool):
+        """K over the data's points: the kernel (and the noise kernel if
+        asked), by ``cov_backend``."""
+        backend = self.cov_backend
+        if backend == "auto":
+            backend = _AUTO_COV_BACKEND
+        tk = self._theta_k(theta)
+        if backend in ("fused", "pallas") and fused.fused_supported(
+            self.kernel, data.multi_indices, data.num_dim
+        ):
+            Kff = fused.flagship_cov(
+                self.kernel, tk, data.Xf, data.nid, data.multi_indices, backend=backend
+            )
+            if self.kernel.delta_terms():
+                Kff = Kff + assemble.delta_matrix(
+                    self.kernel, tk, data.Xf, data.nid, data.Xf, data.nid,
+                    data.multi_indices,
+                )
+        else:
+            Kff = assemble.cov_matrix(
+                self.kernel, tk, data.Xf, data.nid, data.Xf, data.nid, data.multi_indices
+            )
+        if include_noise and self.noise_kernel is not None:
+            Kff = Kff + assemble.cov_matrix(
+                self.noise_kernel, self._theta_noise(theta), data.Xf, data.nid,
+                data.Xf, data.nid, data.multi_indices,
+            )
+        return Kff
+
+    def _latent_mean(self, theta, data: Dataset):
+        if self.mean is None:
+            return torch.zeros(theta.shape[:-1] + (data.num_obs,), dtype=theta.dtype,
+                               device=theta.device)
+        return self._mean_at(theta, data.Xf, data.nid, data.multi_indices)
+
+    def obs_cov_and_resid(self, theta_full: torch.Tensor, data: Dataset):
+        """Observation covariance (kernel, noise kernel, err_y^2 on the
+        diagonal) and the residual y - mu: (..., N, N) and (..., N)."""
+        self._check_device(theta_full, data)
+        Kobs = self._latent_cov(theta_full, data, include_noise=True)
+        Kobs = Kobs + torch.diag(data.err_y * data.err_y).to(Kobs.dtype)
+        r = data.y.to(Kobs.dtype) - self._latent_mean(theta_full, data)
+        return Kobs, r
+
+    def compute_K_L_alpha_ll(self, theta_full: torch.Tensor, data: Dataset) -> evidence.CholState:
+        """Build K, factor it, alpha and the log marginal likelihood (the
+        reference's cached quadruple); differentiable by autograd."""
+        Kobs, r = self.obs_cov_and_resid(theta_full, data)
+        return evidence.gaussian_loglik(Kobs, r, self.diag_factor)
+
+    def log_marginal(self, theta_full: torch.Tensor, data: Dataset) -> torch.Tensor:
+        """The value of `compute_K_L_alpha_ll`'s ll, with the analytic
+        backward (`evidence.loglik`)."""
+        Kobs, r = self.obs_cov_and_resid(theta_full, data)
+        return evidence.loglik(Kobs, r, self.diag_factor)
+
+    def log_posterior(self, theta_full: torch.Tensor, data: Dataset) -> torch.Tensor:
+        lp = self.log_prior(theta_full)
+        ll = torch.where(torch.isfinite(lp), self.log_marginal(theta_full, data), 0.0)
+        return lp + ll
+
+    def log_posterior_u(self, u_free: torch.Tensor, data: Dataset) -> torch.Tensor:
+        """Unconstrained-space log posterior, ll + log prior + log|det J|."""
+        u_full = self._u_full(u_free)
+        theta = self.bijector.forward(u_full)
+        return self.log_posterior(theta, data) + self.bijector.log_det_jac(u_full)
+
+    # -- prediction -----------------------------------------------------------
+    def _star_ids(self, data: Dataset, Xstar, nstar):
+        """Star points (Ns, D) on the data's device, their order ids and
+        the data's multi-index table with the star orders merged in."""
+        Xs = torch.as_tensor(Xstar, dtype=data.Xf.dtype, device=data.device)
+        if Xs.ndim < 2:
+            Xs = Xs.reshape(1, -1)
+        if Xs.shape[-1] != data.num_dim:
+            if data.num_dim != 1:
+                raise ValueError("Xstar dimensionality mismatch")
+            Xs = Xs.reshape(-1, 1)
+        ns = Xs.shape[0]
+        arr = np.asarray(nstar)
+        if arr.ndim == 0:
+            mis = [normalize_multi_index(int(arr), data.num_dim)] * ns
+        elif arr.ndim == 1 and data.num_dim == 1:
+            if len(arr) == 1:
+                mis = [normalize_multi_index(int(arr[0]), 1)] * ns
+            else:
+                mis = [normalize_multi_index(int(v), 1) for v in arr]
+        elif arr.ndim == 1 and len(arr) == data.num_dim:
+            mis = [normalize_multi_index([int(v) for v in arr], data.num_dim)] * ns
+        elif arr.ndim == 2:
+            mis = [normalize_multi_index([int(v) for v in row], data.num_dim) for row in arr]
+        else:
+            raise ValueError("bad nstar")
+        table = _merge_multi_indices(data.multi_indices, mis)
+        sid = torch.tensor([table.index(m) for m in mis], dtype=torch.int32,
+                           device=data.device)
+        return Xs, sid, table
+
+    def predict(
+        self,
+        theta_full: torch.Tensor,
+        data: Dataset,
+        Xstar,
+        n=0,
+        noise: bool = False,
+        return_std: bool = True,
+        return_cov: bool = False,
+        output_transform=None,
+        state: Optional[evidence.CholState] = None,
+    ) -> Prediction:
+        """Posterior predictive at ``Xstar`` with derivative orders ``n``.
+
+        ``noise=True`` adds the noise kernel to the predictive covariance;
+        ``output_transform`` (M, Ns) maps the prediction linearly; ``state``
+        is a `compute_K_L_alpha_ll` result to reuse. With a theta batch
+        (B, P) every output gains the leading B axis."""
+        Xs, sid, table = self._star_ids(data, Xstar, n)
+        if state is None:
+            state = self.compute_K_L_alpha_ll(theta_full, data)
+        tk = self._theta_k(theta_full)
+        Ksf = assemble.cov_matrix(self.kernel, tk, Xs, sid, data.Xf, data.nid, table)
+        if noise and self.noise_kernel is not None:
+            Ksf = Ksf + assemble.cov_matrix(
+                self.noise_kernel, self._theta_noise(theta_full), Xs, sid,
+                data.Xf, data.nid, table,
+            )
+        if self.mean is not None:
+            mu_star = self._mean_at(theta_full, Xs, sid, table)
+        else:
+            mu_star = torch.zeros(Ksf.shape[:-1], dtype=Ksf.dtype, device=Ksf.device)
+        mean = mu_star + (Ksf @ state.alpha[..., None])[..., 0]
+
+        std = cov = None
+        if return_std or return_cov:
+            Kss = assemble.cov_matrix(self.kernel, tk, Xs, sid, Xs, sid, table)
+            if noise and self.noise_kernel is not None:
+                Kss = Kss + assemble.cov_matrix(
+                    self.noise_kernel, self._theta_noise(theta_full), Xs, sid, Xs,
+                    sid, table,
+                )
+            V = torch.linalg.solve_triangular(state.L, Ksf.mT, upper=False)
+            cov = Kss - V.mT @ V
+        if output_transform is not None:
+            O = torch.as_tensor(output_transform, dtype=mean.dtype, device=mean.device)
+            mean = (O @ mean[..., None])[..., 0]
+            if cov is not None:
+                cov = O @ cov @ O.T
+        if cov is not None:
+            std = torch.sqrt(torch.clamp(torch.diagonal(cov, dim1=-2, dim2=-1), min=0.0))
+        return Prediction(
+            mean=mean,
+            std=std if return_std else None,
+            cov=cov if return_cov else None,
+        )
+
+    def draw_sample(
+        self,
+        generator: torch.Generator,
+        theta_full: torch.Tensor,
+        data: Dataset,
+        Xstar,
+        n=0,
+        num_samp: int = 1,
+        method: str = "cholesky",
+        num_eig: Optional[int] = None,
+        modify_sign: bool = False,
+        noise: bool = False,
+        output_transform=None,
+        state: Optional[evidence.CholState] = None,
+    ) -> torch.Tensor:
+        """Joint posterior function draws, (num_points, num_samp) (a theta
+        batch adds a leading axis), the normals from ``generator``.
+        ``method``: ``"cholesky"`` (jittered factor) or ``"eig"`` (the
+        ``num_eig`` largest modes); ``modify_sign`` flips each eigenvector
+        so its largest-magnitude component is positive."""
+        pred = self.predict(
+            theta_full, data, Xstar, n=n, noise=noise, return_std=False,
+            return_cov=True, output_transform=output_transform, state=state,
+        )
+        mean, cov = pred.mean, pred.cov
+        z = torch.randn((mean.shape[-1], int(num_samp)), generator=generator,
+                        dtype=mean.dtype, device=mean.device)
+        if method == "cholesky":
+            return mean[..., None] + evidence.chol_factor(cov, self.diag_factor) @ z
+        if method != "eig":
+            raise ValueError(f"unknown method {method!r}")
+        w, V = torch.linalg.eigh(cov)
+        if num_eig is not None:
+            k = int(num_eig)
+            w, V = w[..., -k:], V[..., -k:]
+            z = z[: w.shape[-1]]
+        if modify_sign:
+            idx = torch.argmax(V.abs(), dim=-2, keepdim=True)
+            signs = torch.sign(torch.gather(V, -2, idx))
+            V = V * torch.where(signs == 0, 1.0, signs)
+        w = torch.clamp(w, min=0.0)
+        return mean[..., None] + V @ (torch.sqrt(w)[..., :, None] * z)
+
+
+class GaussianProcess:
+    """Stateful wrapper with the reference's API surface.
+
+        >>> gp = GaussianProcess(SquaredExponentialKernel())   # on the card
+        >>> gp.add_data(x, y, err_y=err)
+        >>> gp.add_data(0.0, 0.0, n=1)         # slope constraint at the edge
+        >>> gp.sample_hyperparameter_posterior(sampler="smc+chees", ...)
+        >>> mean, std = gp.predict_MCMC(xstar)
+
+    The data are built on ``device`` (the card unless ``"cpu"`` is given)
+    in ``dtype`` (float64 unless given); theta lives there too.
+    ``cov_backend`` is handed to `GPModel`.
+    """
+
+    def __init__(
+        self,
+        k: Kernel,
+        noise_k: Optional[Kernel] = None,
+        mu: Optional[MeanFunction] = None,
+        diag_factor: float = 1e2,
+        solve_dtype=None,
+        cov_backend: str = "auto",
+        device="cuda",
+        dtype: torch.dtype = torch.float64,
+    ):
+        self.model = GPModel(k, noise_kernel=noise_k, mean=mu, diag_factor=diag_factor,
+                             solve_dtype=solve_dtype, cov_backend=cov_backend)
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.builder = DatasetBuilder(k.num_dim)
+        self._data: Optional[Dataset] = None
+        self.theta = self._tensor(self.model.initial_params)
+        self._state: Optional[evidence.CholState] = None
+        self.sample_result = None  # the last sampler result
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+
+    # -- data ---------------------------------------------------------------
+    @property
+    def num_dim(self):
+        return self.model.kernel.num_dim
+
+    @property
+    def X(self):
+        """Latent evaluation points (N, D)."""
+        return self.data.Xf
+
+    @property
+    def y(self):
+        return self.data.y
+
+    @property
+    def err_y(self):
+        return self.data.err_y
+
+    @property
+    def n(self):
+        """Derivative multi-index of each point, (N, D) numpy."""
+        return np.asarray([self.data.multi_indices[i] for i in self.data.nid.tolist()])
+
+    @property
+    def K(self):
+        """Observation covariance at the current hyperparameters."""
+        return self.model.obs_cov_and_resid(self.theta, self.data)[0]
+
+    @property
+    def L(self):
+        return self.compute_K_L_alpha_ll().L
+
+    @property
+    def alpha(self):
+        return self.compute_K_L_alpha_ll().alpha
+
+    @property
+    def params(self):
+        """Current hyperparameter values."""
+        return self.theta
+
+    @property
+    def free_params(self):
+        return self.model.extract_free(self.theta)
+
+    @free_params.setter
+    def free_params(self, value):
+        self.theta = self.model.embed_free(self._tensor(value))
+        self._state = None
+
+    @property
+    def param_names(self):
+        return self.model.param_names
+
+    @property
+    def free_param_names(self):
+        return tuple(self.model.param_names[i] for i in self.model.free_idx)
+
+    @property
+    def param_bounds(self):
+        """Live view of the concatenated component bounds: writes go
+        through to the owning kernel or mean."""
+        return self.model.param_bounds
+
+    @property
+    def free_param_bounds(self):
+        """Live view of the free parameters' bounds."""
+        return MaskedBounds(self.model.param_bounds, self.model.free_idx)
+
+    @property
+    def hyperprior(self):
+        return self.model.hyperprior
+
+    @property
+    def k(self):
+        return self.model.kernel
+
+    @property
+    def noise_k(self):
+        return self.model.noise_kernel
+
+    @property
+    def mu(self):
+        return self.model.mean
+
+    def add_data(self, X, y, err_y=0.0, n=0, T=None):
+        self.builder.add(X, y, err_y=err_y, n=n, T=T)
+        self._data = None
+        self._state = None
+        return self
+
+    @property
+    def data(self) -> Dataset:
+        if self._data is None:
+            self._data = self.builder.build(self.dtype, self.device)
+        return self._data
+
+    def remove_outliers(self, thresh: float = 3.0) -> int:
+        """Drop observations whose standardized residual exceeds
+        ``thresh``, then refresh; returns the number removed."""
+        data = self.data
+        with torch.no_grad():
+            pred = self.model.predict(self.theta, data, data.Xf, n=0, return_std=True)
+        err = data.err_y.cpu().numpy()
+        resid = np.abs(data.y.cpu().numpy() - pred.mean.cpu().numpy())
+        scale = np.sqrt(err**2 + pred.std.cpu().numpy() ** 2)
+        keep = resid <= thresh * np.maximum(scale, 1e-300)
+        n_removed = int((~keep).sum())
+        if n_removed:
+            nb = DatasetBuilder(data.num_dim)
+            mi = [data.multi_indices[i] for i in data.nid.tolist()]
+            nb.add(data.Xf.cpu().numpy()[keep], data.y.cpu().numpy()[keep],
+                   err_y=err[keep], n=np.asarray([mi[i] for i in np.where(keep)[0]]))
+            self.builder = nb
+            self._data = None
+            self._state = None
+        return n_removed
+
+    # -- likelihood ---------------------------------------------------------
+    def update_hyperparameters(self, theta_full) -> torch.Tensor:
+        """Set the parameters and return the negative log posterior (the
+        MAP objective)."""
+        self.theta = self._tensor(theta_full)
+        self._state = None
+        ll = self.model.log_marginal(self.theta, self.data)
+        return -(ll + self.model.log_prior(self.theta))
+
+    def compute_K_L_alpha_ll(self) -> evidence.CholState:
+        if self._state is None:
+            self._state = self.model.compute_K_L_alpha_ll(self.theta, self.data)
+        return self._state
+
+    @property
+    def ll(self):
+        return self.compute_K_L_alpha_ll().ll
+
+    # -- inference ----------------------------------------------------------
+    def optimize_hyperparameters(self, *args, **kwargs):
+        raise NotImplementedError(
+            "optimize_hyperparameters needs map_fit and a batched L-BFGS: "
+            "ROADMAP Queue 1 item 13"
+        )
+
+    def sample_hyperparameter_posterior(
+        self,
+        nsamp: int = 1000,
+        burn: int = 500,
+        num_chains: int = 8,
+        sampler: str = "nuts",
+        sampler_type: Optional[str] = None,
+        thin: int = 1,
+        generator: Optional[torch.Generator] = None,
+        **kwargs,
+    ):
+        """Sample the hyperparameter posterior (`infer.run_sampler`). The
+        reference's spellings ``sampler_type``, ``nwalkers``, ``ntemps``
+        and ``num_proc`` are accepted; ``generator`` defaults to one seeded
+        with 0 on the wrapper's device."""
+        from gptools_tpu_torch.infer import run_sampler
+
+        if sampler_type is not None:
+            sampler = {"ensemble": "nuts"}.get(sampler_type, sampler_type)
+        if "ntemps" in kwargs:
+            kwargs["num_temps"] = kwargs.pop("ntemps")
+        if "nwalkers" in kwargs:
+            num_chains = kwargs.pop("nwalkers")
+        kwargs.pop("num_proc", None)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        result = run_sampler(
+            self.model, self.data, generator, sampler=sampler, num_chains=num_chains,
+            num_samples=nsamp, num_warmup=burn, **kwargs,
+        )
+        if thin > 1:
+            result = result._replace(
+                u=result.u[:, ::thin],
+                thetas=None if result.thetas is None else result.thetas[:, ::thin],
+                log_prob=result.log_prob[:, ::thin],
+            )
+        self.sample_result = result
+        return result
+
+    # -- prediction ---------------------------------------------------------
+    def predict(
+        self,
+        Xstar,
+        n=0,
+        noise: bool = False,
+        return_std: bool = True,
+        return_cov: bool = False,
+        output_transform=None,
+        use_MCMC: bool = False,
+        **mcmc_kwargs,
+    ):
+        """``(mean, std)`` by default, ``(mean, cov)`` with ``return_cov``,
+        or just ``mean``; ``use_MCMC`` marginalizes over the posterior
+        samples (`predict_MCMC`)."""
+        if use_MCMC:
+            return self.predict_MCMC(
+                Xstar, n=n, noise=noise, return_std=return_std, return_cov=return_cov,
+                output_transform=output_transform, **mcmc_kwargs,
+            )
+        pred = self.model.predict(
+            self.theta, self.data, Xstar, n=n, noise=noise,
+            return_std=return_std or return_cov, return_cov=return_cov,
+            output_transform=output_transform, state=self.compute_K_L_alpha_ll(),
+        )
+        if return_cov:
+            return pred.mean, pred.cov
+        if return_std:
+            return pred.mean, pred.std
+        return pred.mean
+
+    def draw_sample(self, Xstar, num_samp: int = 1,
+                    generator: Optional[torch.Generator] = None, **kwargs):
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return self.model.draw_sample(
+            generator, self.theta, self.data, Xstar, num_samp=num_samp,
+            state=self.compute_K_L_alpha_ll(), **kwargs,
+        )
+
+    # -- fully-Bayesian prediction -------------------------------------------
+    def _mcmc_thetas(self, thetas, thin: int) -> torch.Tensor:
+        if thetas is None:
+            if self.sample_result is None:
+                raise ValueError("no MCMC samples available; run "
+                                 "sample_hyperparameter_posterior first")
+            thetas = self.sample_result.thetas
+        return self._tensor(thetas).reshape(-1, self.model.num_params)[::thin]
+
+    def compute_from_MCMC(self, Xstar, thetas=None, n=0, noise=False, thin=1):
+        """Per-sample predictive means and stds, (S, Ns) each: one batched
+        factorization and prediction over the S thetas."""
+        th = self._mcmc_thetas(thetas, thin)
+        pred = self.model.predict(th, self.data, Xstar, n=n, noise=noise,
+                                  return_std=True, return_cov=False)
+        return pred.mean, pred.std
+
+    def predict_MCMC(self, Xstar, n=0, noise=False, return_std=True, return_cov=False,
+                     output_transform=None, thetas=None, thin=1):
+        """Predictive moments marginalized over the posterior samples (law
+        of total mean and variance)."""
+        th = self._mcmc_thetas(thetas, thin)
+        preds = self.model.predict(
+            th, self.data, Xstar, n=n, noise=noise, return_std=not return_cov,
+            return_cov=return_cov, output_transform=output_transform,
+        )
+        mean = preds.mean.mean(0)
+        if return_cov:
+            dm = preds.mean - mean
+            return mean, preds.cov.mean(0) + (dm.T @ dm) / preds.mean.shape[0]
+        if return_std:
+            var = (preds.std**2 + preds.mean**2).mean(0) - mean**2
+            return mean, torch.sqrt(torch.clamp(var, min=0.0))
+        return mean
+
+    # -- serving --------------------------------------------------------------
+    def freeze_predictor(self, bucket: int = 64):
+        """A predictor with (L, alpha) precomputed at the current
+        hyperparameters (`models.serve.FrozenPredictor`)."""
+        from gptools_tpu_torch.models.serve import FrozenPredictor
+
+        return FrozenPredictor(self.model, self.data, self.theta, bucket=bucket)
+
+    def freeze_mcmc_predictor(self, thetas=None, max_samples: int = 512):
+        """A posterior-marginalized predictor with a batch of states
+        precomputed (`models.serve.FrozenMCMCPredictor`)."""
+        from gptools_tpu_torch.models.serve import FrozenMCMCPredictor
+
+        if thetas is None:
+            if self.sample_result is None:
+                raise ValueError("no MCMC samples available")
+            thetas = self.sample_result.thetas
+        return FrozenMCMCPredictor(self.model, self.data, thetas, max_samples=max_samples)
+
+    # -- diagnostics ---------------------------------------------------------
+    def compute_ll_matrix(self, bounds: Sequence[tuple], num_pts) -> tuple:
+        """The log posterior on a grid over the free parameters, in one
+        batched call. Returns ``(ll_grid, axes)``, ``ll_grid`` of shape
+        ``num_pts``."""
+        nf = self.model.num_free_params
+        if len(bounds) != nf:
+            raise ValueError(f"need {nf} bounds")
+        if isinstance(num_pts, int):
+            num_pts = [num_pts] * nf
+        axes = [torch.linspace(lo, hi, int(k), dtype=self.dtype, device=self.device)
+                for (lo, hi), k in zip(bounds, num_pts)]
+        grids = torch.meshgrid(*axes, indexing="ij")
+        flat = torch.stack([g.reshape(-1) for g in grids], dim=-1)
+        vals = self.model.log_posterior(self.model.embed_free(flat), self.data)
+        return vals.reshape([int(v) for v in num_pts]), axes

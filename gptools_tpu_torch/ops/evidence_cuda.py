@@ -24,9 +24,10 @@ Routes, chosen by the device of ``thetaT`` and nothing else:
 
 - CUDA: the kernel in ``csrc/`` (one thread per chain; see
   ``csrc/evidence_chain.cuh``). It is compiled by ``nvcc`` for ``sm_90a``
-  into a shared library with a plain C interface at the first CUDA call,
+  at the first CUDA call, together with the covariance kernel
+  (`ops.cov_cuda`), into one shared library with a plain C interface,
   cached under ``gptools_tpu_torch/_build/`` by a hash of the sources, and
-  bound with ctypes. A build or launch failure raises.
+  bound with ctypes (`build`, `library`). A build or launch failure raises.
 - CPU: `loglik_vag_plain`, the plain PyTorch version (fused covariance build
   + `evidence.loglik_b`, gradients by autograd).
 
@@ -59,6 +60,7 @@ __all__ = [
     "PLAIN_CALLS",
     "reset_counts",
     "build",
+    "library",
     "supported",
     "make_data",
     "loglik_vag_plain",
@@ -77,7 +79,8 @@ PLAIN_CALLS = {k: 0 for k in KINDS}
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
-_SOURCES = ("evidence_chain.cuh", "evidence_kernel.cu")
+_SOURCES = ("evidence_chain.cuh", "cov_entry.cuh", "evidence_kernel.cu", "cov_kernel.cu")
+_UNITS = ("evidence_kernel.cu", "cov_kernel.cu")  # compiled and linked by one nvcc
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -148,21 +151,21 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the kernel library (every kind and dtype, one nvcc call) if
-    this source hash has not been built; return its path. `BUILD_INFO`
-    records the command, seconds and the compiler's resource report
-    (``-Xptxas -v``)."""
+    """Compile the kernel library (the evidence and covariance kernels,
+    every kind and dtype, one nvcc call) if this source hash has not been
+    built; return its path. `BUILD_INFO` records the command, seconds and
+    the compiler's resource report (``-Xptxas -v``)."""
     h = hashlib.sha256()
     for name in _SOURCES:
         h.update((_CSRC / name).read_bytes())
     h.update(" ".join(_NVCC_FLAGS).encode())
-    so = _BUILD_DIR / f"libgt_evidence_{h.hexdigest()[:16]}.so"
+    so = _BUILD_DIR / f"libgt_kernels_{h.hexdigest()[:16]}.so"
     if so.exists():
         BUILD_INFO.update(path=str(so), seconds=0.0, cached=True)
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / "evidence_kernel.cu")]
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *(str(_CSRC / u) for u in _UNITS)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
@@ -178,12 +181,16 @@ def build() -> Path:
     return so
 
 
-def _lib():
+def library() -> ctypes.CDLL:
+    """The kernel library, built and loaded at the first call, with the
+    argument types of every entry point: the evidence kernel's here, the
+    covariance kernel's (`ops.cov_cuda`) ``gt_{kind}_cov_{dtype}(n, X, nid,
+    theta, B, out, stream)``."""
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        for kind in KINDS:
-            for dt in ("f32", "f64"):
+        for dt in ("f32", "f64"):
+            for kind in KINDS:
                 fn = getattr(lib, f"gt_{kind}_evidence_{dt}")
                 fn.argtypes = (
                     [ctypes.c_int]                 # n
@@ -193,6 +200,13 @@ def _lib():
                     + [ctypes.c_void_p] * 4        # mu, nd, w, wp
                     + [ctypes.c_void_p] * 6        # ll, grad, gmu, gnd, gw, gwp
                     + [ctypes.c_void_p]            # stream
+                )
+                fn.restype = ctypes.c_int
+            for kind in ("se", "gibbs_tanh"):
+                fn = getattr(lib, f"gt_{kind}_cov_{dt}")
+                fn.argtypes = (
+                    [ctypes.c_int] + [ctypes.c_void_p] * 3  # n, X, nid, theta
+                    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]  # B, out, stream
                 )
                 fn.restype = ctypes.c_int
         _LIB = lib
@@ -258,7 +272,7 @@ def loglik_vag_cuda(thetaT: torch.Tensor, ev: EvidenceData, aux: Optional[dict] 
     grad = torch.empty_like(thetaT)
     gaux = {name: torch.empty_like(a) for name, a in aux.items()}
     if C > 0:
-        lib = _lib()
+        lib = library()
         fn = getattr(lib, f"gt_{ev.kind}_evidence_{'f64' if thetaT.dtype == torch.float64 else 'f32'}")
 
         def ptr(d, name):

@@ -1,13 +1,20 @@
-"""Fused covariance builds, chains-minor (plain PyTorch).
+"""Fused covariance builds (plain PyTorch).
 
-Counterpart of the chains-minor half of `gptools_tpu.ops.fused`: the
-Gibbs-tanh, SE and Matern-5/2 {value, slope} blocks, the BetaWarp /
-LinearWarp input-warped builds, the classifier and `flagship_cov_soa`.
-These are the covariance half of the evidence kernel's plain version:
-differentiable by autograd, and the CPU path of the port. The per-chain
-(single-theta) builders and the full-matrix ``*_soa`` twins serve only the
-single-theta surface and the reference's A/B switch (ROADMAP Queue 1
-item 12); the Pallas tile builder is Queue 2 item 4.
+Counterpart of `gptools_tpu.ops.fused`, in two halves:
+
+- chains-minor, thetaT (P, C) -> (N, N, C): the Gibbs-tanh, SE and
+  Matern-5/2 {value, slope} blocks over the upper-triangle pairs, the
+  BetaWarp / LinearWarp input-warped builds and `flagship_cov_soa`. They
+  are the covariance half of the evidence kernel's plain version.
+- single theta, theta (P,) -> (N, N), or a leading batch (B, P) ->
+  (B, N, N): `se_cov_fused`, `gibbs_tanh_cov_fused`, `matern52_cov_fused`,
+  `warped_cov_fused` and `flagship_cov` with its ``backend`` switch. They
+  serve `GPModel`'s single-theta surface, and the first two are the plain
+  version of the covariance kernel (`ops.cov_cuda`).
+
+Both are differentiable by autograd. The reference's full-matrix
+chains-minor ``*_soa`` builders exist for its A/B switch
+(``SOA_SYMMETRIC``) and are not ported.
 """
 
 from __future__ import annotations
@@ -22,8 +29,15 @@ from gptools_tpu_torch.ops.special import betainc_dd
 
 __all__ = [
     "se_blocks_d",
+    "se_blocks",
     "matern52_blocks_d",
+    "matern52_blocks",
+    "gibbs_tanh_blocks",
     "assemble_blocks",
+    "se_cov_fused",
+    "gibbs_tanh_cov_fused",
+    "matern52_cov_fused",
+    "warped_cov_fused",
     "se_cov_fused_soa_sym",
     "gibbs_tanh_cov_fused_soa_sym",
     "matern52_cov_fused_soa_sym",
@@ -32,6 +46,8 @@ __all__ = [
     "coords_cov_soa_sym",
     "warped_cov_fused_soa_sym",
     "classify_flagship",
+    "fused_supported",
+    "flagship_cov",
     "flagship_cov_soa",
 ]
 
@@ -62,6 +78,24 @@ def matern52_blocks_d(d, theta):
 
 
 _BASE_BLOCKS_D = {"se": se_blocks_d, "matern52": matern52_blocks_d}
+
+
+def _rows(theta):
+    """A theta (P,) as is, a batch (B, P) as rows (P, B, 1, 1): either way
+    ``rows[p]`` broadcasts against an (N, M) grid."""
+    return theta if theta.ndim == 1 else theta.T[:, :, None, None]
+
+
+def se_blocks(x_row, x_col, theta):
+    """SE {value, slope} blocks on a broadcast (row, col) grid: x_row
+    (N, 1), x_col (1, M), theta rows [sigma_f, l] -> (k00, k10, k01, k11),
+    k10 the derivative in the row point."""
+    return se_blocks_d(x_row - x_col, theta)
+
+
+def matern52_blocks(x_row, x_col, theta):
+    """Matern-5/2 blocks on a broadcast (row, col) grid."""
+    return matern52_blocks_d(x_row - x_col, theta)
 
 
 def assemble_blocks(blocks, nid_row, nid_col):
@@ -107,6 +141,51 @@ def _gibbs_pair(sf, la, dla, lb, dlb, d, sel: int):
     return (g1 * g2 + dg2dx) * k
 
 
+def _gibbs_pair_blocks(sf, la, dla, lb, dlb, d):
+    """All four Gibbs-tanh blocks (k00, k10, k01, k11) on broadcast
+    operands: the reference evaluates every block at every pair."""
+    return tuple(_gibbs_pair(sf, la, dla, lb, dlb, d, sel) for sel in (0, 2, 1, 3))
+
+
+def _tanh_warp(x, l1, l2, lw, x0):
+    """l(x) and l'(x) of the tanh length-scale profile."""
+    t = torch.tanh((x - x0) / lw)
+    return l1 + 0.5 * (l2 - l1) * (1.0 + t), 0.5 * (l2 - l1) * (1.0 - t * t) / lw
+
+
+def gibbs_tanh_blocks(x_row, x_col, theta):
+    """Gibbs-tanh {value, slope} blocks on a broadcast (row, col) grid;
+    theta rows [sigma_f, l1, l2, lw, x0]."""
+    sf, warp = theta[0], theta[1:5]
+    la, dla = _tanh_warp(x_row, *warp)
+    lb, dlb = _tanh_warp(x_col, *warp)
+    return _gibbs_pair_blocks(sf, la, dla, lb, dlb, x_row - x_col)
+
+
+def _cov_fused(blocks_fn, X, nid, theta):
+    return assemble_blocks(
+        blocks_fn(X[:, None], X[None, :], _rows(theta)), nid[:, None], nid[None, :]
+    )
+
+
+def se_cov_fused(X, nid, theta):
+    """SE covariance: X (N,), nid (N,) order ids (0 value, 1 slope, any
+    other id zero), theta (2,) or (B, 2) -> (N, N) or (B, N, N)."""
+    return _cov_fused(se_blocks, X, nid, theta)
+
+
+def gibbs_tanh_cov_fused(X, nid, theta):
+    """Gibbs-tanh covariance: theta (5,) or (B, 5) -> (N, N) or
+    (B, N, N)."""
+    return _cov_fused(gibbs_tanh_blocks, X, nid, theta)
+
+
+def matern52_cov_fused(X, nid, theta):
+    """Matern-5/2 covariance: theta (2,) or (B, 2) -> (N, N) or
+    (B, N, N)."""
+    return _cov_fused(matern52_blocks, X, nid, theta)
+
+
 @functools.lru_cache(maxsize=64)
 def _triu_index_maps(n: int):
     """Upper-triangle (row, col) index vectors of length n(n+1)/2 and the
@@ -144,10 +223,8 @@ def gibbs_tanh_cov_fused_soa_sym(X, nid, thetaT):
     rows, cols, pid = _triu_index_maps(X.shape[0])
     groups, inv = _pair_groups(tuple(int(v) for v in nid.tolist()))
     dev = thetaT.device
-    sf, l1, l2, lw, x0 = thetaT[0], thetaT[1], thetaT[2], thetaT[3], thetaT[4]
-    t = torch.tanh((X[:, None] - x0) / lw)  # (N, C)
-    l = l1 + 0.5 * (l2 - l1) * (1.0 + t)
-    dl = 0.5 * (l2 - l1) * (1.0 - t * t) / lw
+    sf = thetaT[0]
+    l, dl = _tanh_warp(X[:, None], *thetaT[1:5])  # (N, C) each
     parts = []
     for sel, idx in groups:
         r = torch.as_tensor(rows[idx], device=dev)
@@ -238,6 +315,25 @@ def warped_cov_fused_soa_sym(base_kind, input_warp, X, ids, thetaT):
     return coords_cov_soa_sym(base_kind, w, wp, ids, thetaT[:pb])
 
 
+def warped_cov_fused(base_kind, input_warp, X, ids, theta):
+    """Input-warped covariance k_base(w(x), w(x')) with the slope blocks
+    scaled by w' (chain rule): theta [base params | warp params], (P,) or
+    (B, P) -> (N, N) or (B, N, N)."""
+    pb = {"se": 2, "matern52": 2}[base_kind]
+    if theta.ndim == 1:
+        w, wp = warp_coords(input_warp, X, theta[pb:, None], True)  # (N, 1)
+        w, wp = w[:, 0], wp[:, 0]
+    else:
+        w, wp = warp_coords(input_warp, X, theta[:, pb:].T, True)  # (N, B)
+        w, wp = w.T, wp.T
+    wr, wc = w[..., :, None], w[..., None, :]
+    k00, k10, k01, k11 = _BASE_BLOCKS_D[base_kind](wr - wc, _rows(theta[..., :pb]))
+    pr, pc = wp[..., :, None], wp[..., None, :]
+    return assemble_blocks(
+        (k00, k10 * pr, k01 * pc, k11 * (pr * pc)), ids[:, None], ids[None, :]
+    )
+
+
 def classify_flagship(kernel):
     """``(kind, base_params, input_warp)`` for a kernel with a fused build
     and a CUDA kind, else None: kind in {'se', 'gibbs_tanh', 'matern52'},
@@ -293,6 +389,60 @@ def flagship_cov_soa(kernel, thetaT, X, nid, multi_indices):
         "matern52": matern52_cov_fused_soa_sym,
     }
     return builds[kind](Xf, ids, thetaT)
+
+
+def fused_supported(kernel, multi_indices, num_dim) -> bool:
+    """True when the fused builders cover (kernel, orders, dimension)."""
+    if num_dim != 1:
+        return False
+    if not set(tuple(m) for m in multi_indices) <= {(0,), (1,)}:
+        return False
+    return classify_flagship(kernel) is not None
+
+
+def flagship_cov(kernel, theta, X, nid, multi_indices, backend: str = "fused"):
+    """Fused K over one point set for a classified kernel: theta (P,) or
+    (B, P) -> (N, N) or (B, N, N).
+
+    backend: ``"fused"`` (plain PyTorch, differentiable) or ``"pallas"``
+    (the covariance kernel `ops.cov_cuda` forward, the fused build as its
+    backward; on a CPU tensor the kernel's plain version). The kernel
+    exists for the SE and Gibbs-tanh kinds only; other kinds take the
+    fused build, as in the reference."""
+    from gptools_tpu_torch.ops.kernels import (
+        GibbsKernel,
+        SquaredExponentialKernel,
+        TanhWarp,
+    )
+
+    if isinstance(kernel, GibbsKernel) and type(kernel.warp) is not TanhWarp:
+        raise ValueError(
+            "flagship_cov only implements the TanhWarp Gibbs kernel; got "
+            f"GibbsKernel with warp {type(kernel.warp).__name__}. Use the "
+            "generic assembly (ops.assemble) for other warps."
+        )
+    cls = classify_flagship(kernel)
+    if cls is None:
+        raise ValueError(type(kernel).__name__)
+    kind, _, input_warp = cls
+    ids = _order_ids(nid, multi_indices)
+    Xf = X.reshape(-1)
+    if backend == "pallas":
+        from gptools_tpu_torch.ops import cov_cuda
+
+        if type(kernel) is SquaredExponentialKernel:
+            return cov_cuda.se_cov_vjp(Xf, ids, theta)
+        if isinstance(kernel, GibbsKernel):
+            return cov_cuda.gibbs_tanh_cov_vjp(Xf, ids, theta)
+    Xt = Xf.to(theta.dtype)
+    if input_warp is not None:
+        return warped_cov_fused(kind, input_warp, Xt, ids, theta)
+    builds = {
+        "se": se_cov_fused,
+        "gibbs_tanh": gibbs_tanh_cov_fused,
+        "matern52": matern52_cov_fused,
+    }
+    return builds[kind](Xt, ids, theta)
 
 
 def _order_ids(nid, multi_indices):

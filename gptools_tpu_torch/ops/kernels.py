@@ -1,20 +1,29 @@
-"""Covariance-function objects: parameter metadata for configs 2-4.
+"""Covariance-function objects for configs 2-4.
 
-Counterpart of `gptools_tpu.ops.kernels`, reduced to what the batched
-evidence path reads: names, bounds, initial values, fixed flags and the
-hyperprior, with the reference's parameter order and defaults. The
-covariance itself is computed by the fused builders
-(`gptools_tpu_torch.ops.fused`) and the CUDA kernel; the generic
-``smooth_scalar`` / derivative-block surface is ROADMAP Queue 1 item 10 and
-the other kernels and warps are item 11.
+Counterpart of `gptools_tpu.ops.kernels`: names, bounds, initial values,
+fixed flags and the hyperprior, with the reference's parameter order and
+defaults, and the covariance surface of the reference's `Kernel`
+(``_scalar``, ``smooth_scalar``, ``block_fn``, ``__call__``,
+``has_smooth``) for the squared exponential, the Gibbs kernel with the
+tanh warp and the diagonal noise. The scalars broadcast: points ``(..., D)``
+and hyperparameters ``(..., P)`` (parameter axis last, so a leading theta
+batch broadcasts too). Derivative blocks come from `ops.derivs`. The
+batched evidence path does not use these scalars: it takes the fused
+builders (`gptools_tpu_torch.ops.fused`) and the CUDA kernels.
+
+The scalars of `MaternKernel` and `WarpedKernel` are ROADMAP Queue 1 item
+11, as are the other kernels and warps; their ``_scalar`` raises.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
-from gptools_tpu_torch.models.dataset import normalize_multi_index
+import torch
+
+from gptools_tpu_torch.models.dataset import MultiIndex, normalize_multi_index
+from gptools_tpu_torch.ops import derivs
 from gptools_tpu_torch.utils.priors import JointPrior, UniformJointPrior
 
 __all__ = [
@@ -45,8 +54,15 @@ def _norm_bounds(bounds, k):
     return tuple(out)
 
 
+_SCALARS = "the generic scalar of this kernel is ROADMAP Queue 1 item 11"
+
+
 class Kernel:
-    """Base covariance function: parameter metadata only."""
+    """Base covariance function: subclasses define ``_scalar(x1, x2,
+    theta)``, the smooth part."""
+
+    #: True when the kernel contributes a smooth (differentiable) part.
+    has_smooth: bool = True
 
     def __init__(
         self,
@@ -110,6 +126,30 @@ class Kernel:
         """``(param_offset, DiagonalNoiseKernel)`` white-noise terms."""
         return []
 
+    # -- covariance ---------------------------------------------------------
+    def _scalar(self, x1, x2, theta):
+        raise NotImplementedError(f"{type(self).__name__}: {_SCALARS}")
+
+    def smooth_scalar(self, x1, x2, theta):
+        """Smooth covariance k(x1, x2); delta (white-noise) parts excluded."""
+        return self._scalar(x1, x2, theta)
+
+    def block_fn(self, a: MultiIndex, b: MultiIndex) -> Callable:
+        """Derivative cross-covariance block ``d^a_x1 d^b_x2 k``."""
+        return derivs.kernel_block_fn(self.smooth_scalar, a, b)
+
+    def __call__(self, x1, x2, theta, ni=0, nj=0):
+        """The derivative block for static orders ``ni`` / ``nj`` at points
+        x1, x2 (D,) (or broadcast batches of them); inputs that are not
+        tensors become float64 tensors."""
+        a = normalize_multi_index(ni, self.num_dim)
+        b = normalize_multi_index(nj, self.num_dim)
+
+        def t(v):
+            return v if torch.is_tensor(v) else torch.as_tensor(v, dtype=torch.float64)
+
+        return self.block_fn(a, b)(t(x1), t(x2), t(theta))
+
 
 class SquaredExponentialKernel(Kernel):
     """ARD squared exponential ``sigma_f^2 exp(-|x1 - x2|^2 / (2 l^2))``;
@@ -119,6 +159,12 @@ class SquaredExponentialKernel(Kernel):
         names = ("sigma_f",) + tuple(f"l_{d+1}" for d in range(num_dim))
         kw.setdefault("default_bounds", [(1e-4, 1e4)] * (num_dim + 1))
         super().__init__(num_dim, names, **kw)
+
+    def _scalar(self, x1, x2, theta):
+        sigma_f = theta[..., 0]
+        ell = theta[..., 1 : 1 + self.num_dim]
+        z = (x1 - x2) / ell
+        return sigma_f * sigma_f * torch.exp(-0.5 * torch.sum(z * z, -1))
 
 
 class MaternKernel(Kernel):
@@ -153,18 +199,27 @@ class Matern52Kernel(MaternKernel):
 
 
 class LengthScaleWarp:
-    """Length-scale profile ``l(x) > 0`` for the Gibbs kernel (metadata)."""
+    """Length-scale profile ``l(x) > 0`` for the Gibbs kernel."""
 
     param_names: Tuple[str, ...]
     default_bounds: Tuple[tuple, ...]
 
+    def __call__(self, x, theta):
+        """x: input coordinates; theta: (..., num_params) -> l(x)."""
+        raise NotImplementedError(f"{type(self).__name__}: {_SCALARS}")
+
 
 class TanhWarp(LengthScaleWarp):
-    """``l(x) = l1 + (l2 - l1)/2 * (1 + tanh((x - x0) / lw))``; the formula
-    lives in `fused.gibbs_tanh_cov_fused_soa_sym` and the CUDA kernel."""
+    """``l(x) = l1 + (l2 - l1)/2 * (1 + tanh((x - x0) / lw))``; parameters
+    ``(l1, l2, lw, x0)``. The fused builders and the CUDA kernels carry the
+    same formula with its slope."""
 
     param_names = ("l1", "l2", "lw", "x0")
     default_bounds = ((1e-4, 1e4), (1e-4, 1e4), (1e-4, 1e4), (-1e4, 1e4))
+
+    def __call__(self, x, theta):
+        l1, l2, lw, x0 = theta[..., 0], theta[..., 1], theta[..., 2], theta[..., 3]
+        return l1 + 0.5 * (l2 - l1) * (1.0 + torch.tanh((x - x0) / lw))
 
 
 class GibbsKernel(Kernel):
@@ -176,6 +231,15 @@ class GibbsKernel(Kernel):
         names = ("sigma_f",) + tuple(warp.param_names)
         kw.setdefault("default_bounds", ((1e-4, 1e4),) + tuple(warp.default_bounds))
         super().__init__(1, names, **kw)
+
+    def _scalar(self, x1, x2, theta):
+        sigma_f = theta[..., 0]
+        tw = theta[..., 1:]
+        l1 = self.warp(x1[..., 0], tw)
+        l2 = self.warp(x2[..., 0], tw)
+        s2 = l1 * l1 + l2 * l2
+        d = x1[..., 0] - x2[..., 0]
+        return sigma_f * sigma_f * torch.sqrt(2.0 * l1 * l2 / s2) * torch.exp(-d * d / s2)
 
 
 class GibbsKernel1dTanh(GibbsKernel):
@@ -190,13 +254,24 @@ class DiagonalNoiseKernel(Kernel):
     restricted to observations of order ``n`` when one is given
     (``n_match``); parameter ``(sigma_n,)``."""
 
+    has_smooth = False
+
     def __init__(self, num_dim: int = 1, n=None, **kw):
         self.n_match = None if n is None else normalize_multi_index(n, num_dim)
         kw.setdefault("default_bounds", [(0.0, 1e4)])
         super().__init__(num_dim, ("sigma_n",), **kw)
 
+    def _scalar(self, x1, x2, theta):
+        # the smooth part of white noise is identically zero
+        return torch.zeros(torch.broadcast_shapes(x1.shape[:-1], x2.shape[:-1]),
+                           dtype=torch.result_type(x1, x2))
+
     def delta_terms(self):
         return [(0, self)]
+
+    def delta_value(self, theta):
+        """Variance added on matching diagonal entries."""
+        return theta[..., 0] * theta[..., 0]
 
 
 class InputWarp:

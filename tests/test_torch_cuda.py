@@ -1,5 +1,5 @@
-"""The CUDA evidence kernel on the card (marked ``cuda``; skipped without
-one). Imports no jax, so it also runs where only PyTorch is installed:
+"""The CUDA kernels on the card (marked ``cuda``; skipped without one).
+Imports no jax, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
@@ -8,7 +8,10 @@ Kernel vs plain version on the same device: float64 at ll rtol 1e-9, grad
 draws; float32 within the tolerances stated in chip_smoke.py. Config 4
 holds kind gibbs_tanh; configs 2 and 3 hold kinds se and matern52 with the
 aux channels their models build (none; mu and w), and the se_noise and
-warped_se_deriv models hold nd, w and wp.
+warped_se_deriv models hold nd, w and wp. The covariance kernel
+(`cov_cuda`) is held to its plain version at theta batches 1 and 512 on
+configs 4 (gibbs_tanh) and 2 (se), with its VJP and the pallas-backend
+serving predictor.
 """
 
 import json
@@ -225,3 +228,77 @@ def test_stationary_model_gradient_through_kernel(dev, stationary):
     th_c = thetas.cpu().requires_grad_(True)
     (g_c,) = torch.autograd.grad(cpu.model.log_marginal_batch(th_c, cpu.data), th_c, ct)
     np.testing.assert_allclose(g.cpu().numpy(), g_c.numpy(), rtol=1e-7, atol=1e-9)
+
+
+# ---- the covariance kernel (cov_cuda) ---------------------------------------
+
+
+@pytest.fixture(scope="module", params=[4, 2], ids=["config4_gibbs_tanh", "config2_se"])
+def cov_problem(dev, request):
+    config = request.param
+    prob = configs.ALL_CONFIGS[config](dtype=torch.float64, device=dev)
+    kind = "gibbs_tanh" if config == 4 else "se"
+    nid = prob.data.nid
+    return config, kind, prob, prob.data.Xf.reshape(-1), nid
+
+
+@pytest.mark.parametrize("B", [1, 512])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_cov_kernel_matches_plain(dev, cov_problem, B, dtype):
+    """f64: max |dK| / max |K| <= 1e-12; f32 <= 1e-5; the value-value block
+    exactly symmetric; one launch, no plain call."""
+    from gptools_tpu_torch.ops import cov_cuda
+
+    config, kind, _, X, nid = cov_problem
+    th = _golden_draws(config, B, dtype, dev, seed=B)
+    n0, p0 = dict(cov_cuda.LAUNCHES), dict(cov_cuda.PLAIN_CALLS)
+    K = cov_cuda.cov_matrix_flagship(cov_problem[2].model.kernel, th, cov_problem[2].data)
+    torch.cuda.synchronize()
+    assert cov_cuda.LAUNCHES[kind] == n0[kind] + 1 and cov_cuda.PLAIN_CALLS == p0
+    Kp = cov_cuda.cov_plain(kind, X, nid, th)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert float((K - Kp).abs().max() / Kp.abs().max()) <= tol
+    vv = (nid[:, None] == 0) & (nid[None, :] == 0)
+    assert bool(((K == K.mT) | ~vv).all())
+
+
+def test_cov_vjp_gradient_on_card(dev, cov_problem):
+    """The VJP's forward launches the kernel; its theta gradient equals the
+    CPU plain builder's autograd."""
+    from gptools_tpu_torch.ops import cov_cuda
+
+    config, kind, _, X, nid = cov_problem
+    th = _golden_draws(config, 8, torch.float64, dev, seed=4)
+    gK = torch.randn((8,) + (X.shape[0],) * 2, dtype=torch.float64,
+                     generator=torch.Generator().manual_seed(0)).to(dev)
+    fn = cov_cuda.gibbs_tanh_cov_vjp if kind == "gibbs_tanh" else cov_cuda.se_cov_vjp
+    n0 = cov_cuda.LAUNCHES[kind]
+    t = th.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(fn(X, nid, t), t, gK)
+    assert cov_cuda.LAUNCHES[kind] == n0 + 1
+    tc = th.cpu().requires_grad_(True)
+    (gc,) = torch.autograd.grad(fn(X.cpu(), nid.cpu(), tc), tc, gK.cpu())
+    np.testing.assert_allclose(g.cpu().numpy(), gc.numpy(), rtol=1e-10, atol=1e-12)
+
+
+def test_frozen_mcmc_predictor_pallas_on_card(dev, cov_problem):
+    """FrozenMCMCPredictor with cov_backend="pallas" builds its states in
+    one kernel launch, calls no plain version, and answers as the fused
+    backend does (1e-9)."""
+    from gptools_tpu_torch.models.gp import GPModel
+    from gptools_tpu_torch.models.serve import FrozenMCMCPredictor
+    from gptools_tpu_torch.ops import cov_cuda
+
+    config, kind, prob, _, _ = cov_problem
+    th = _golden_draws(config, 64, torch.float64, dev, seed=9)
+    xs = np.linspace(0.0, 1.2 if config == 4 else 3.0, 40)
+    out = {}
+    for backend in ("pallas", "fused"):
+        model = GPModel(prob.model.kernel, cov_backend=backend)
+        cov_cuda.reset_counts()
+        pred = FrozenMCMCPredictor(model, prob.data, th, max_samples=64)
+        out[backend] = [t.cpu().numpy() for n in (0, 1) for t in pred(xs, n=n)]
+        if backend == "pallas":
+            assert cov_cuda.LAUNCHES[kind] == 1 and sum(cov_cuda.PLAIN_CALLS.values()) == 0
+    for a, b in zip(out["pallas"], out["fused"]):
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)

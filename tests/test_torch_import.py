@@ -1,4 +1,5 @@
-"""The port imports torch and numpy only: no jax, no triton, no kernel build."""
+"""The port imports torch and numpy only: no jax, no triton, no kernel build
+(the evidence and covariance kernels share one library)."""
 
 import json
 import os
@@ -35,6 +36,9 @@ def test_import_leaves_out_jax_and_triton(tmp_path):
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "gptools_tpu_torch.ops.evidence_cuda" in res["modules"]
     assert "gptools_tpu_torch.infer.pipeline" in res["modules"]
+    for mod in ("ops.cov_cuda", "ops.assemble", "ops.derivs", "models.serve",
+                "utils.bounds"):
+        assert f"gptools_tpu_torch.{mod}" in res["modules"]
     assert not res["jax"]
     assert not res["triton"]
     assert not res["gptools_tpu"]

@@ -1,10 +1,12 @@
-"""The CUDA kernel's per-chain body, compiled for the host, against the
-plain PyTorch version (autograd), float64 at 1e-10.
+"""The CUDA kernels' bodies, compiled for the host, against their plain
+PyTorch versions, float64.
 
-`gptools_tpu_torch/csrc/evidence_chain.cuh` holds the whole per-chain
-algorithm for every pair kind and aux channel, with hand-derived gradients;
-`evidence_chain_host.cpp` builds it with the host C++ compiler. Skips when
-no C++ compiler is installed.
+`gptools_tpu_torch/csrc/evidence_chain.cuh` holds the evidence kernel's
+whole per-chain algorithm for every pair kind and aux channel, with
+hand-derived gradients (held to autograd at 1e-10); `cov_entry.cuh` the
+covariance kernel's per-point and per-entry functions (held to the fused
+single-theta builders at 1e-12). `evidence_chain_host.cpp` builds both with
+the host C++ compiler. Skips when no C++ compiler is installed.
 """
 
 import ctypes
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from gptools_tpu_torch import configs
-from gptools_tpu_torch.ops import evidence_cuda
+from gptools_tpu_torch.ops import cov_cuda, evidence_cuda
 
 torch.set_num_threads(1)
 
@@ -32,9 +34,8 @@ AUX = evidence_cuda.AUX_NAMES
 
 
 @pytest.fixture(scope="module")
-def body(tmp_path_factory):
-    """``run(thetaT, ev, aux=None) -> (ll, grad, gaux)`` through the host
-    build of the kind's per-chain body (numpy in, numpy out)."""
+def host_lib(tmp_path_factory):
+    """The host build of the kernels' bodies."""
     cxx = shutil.which("c++") or shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -44,7 +45,14 @@ def body(tmp_path_factory):
          os.path.join(CSRC, "evidence_chain_host.cpp")],
         check=True, capture_output=True, timeout=300,
     )
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def body(host_lib):
+    """``run(thetaT, ev, aux=None) -> (ll, grad, gaux)`` through the host
+    build of the kind's per-chain body (numpy in, numpy out)."""
+    lib = host_lib
     fns = {}
     for kind in evidence_cuda.KINDS:
         fn = getattr(lib, f"gt_{kind}_chain_host_f64")
@@ -207,3 +215,35 @@ def test_body_failure_contract_zeroes_aux(body, kind):
     assert ll[2] == -np.inf and (g[:, 2] == 0).all()
     assert all((v[:, 2] == 0).all() for v in ga.values())
     assert np.isfinite(ll[[0, 1, 3]]).all()
+
+
+# ---- the covariance kernel's per-point and per-entry functions --------------
+
+
+@pytest.mark.parametrize("kind", ["se", "gibbs_tanh"])
+def test_cov_entries_match_plain(host_lib, kind):
+    """Every entry of K for a theta batch of 3, slopes interleaved and ids
+    outside {0, 1}, against the fused single-theta builder at 1e-12; the
+    value-value block exactly symmetric."""
+    fn = getattr(host_lib, f"gt_{kind}_cov_host_f64")
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rng = np.random.default_rng(12)
+    n = 23
+    X = np.sort(rng.uniform(0.0, 1.2, n))
+    nid = rng.permutation([0] * 15 + [1] * 6 + [-1, 2]).astype(np.int32)
+    theta = (np.stack([rng.uniform(0.4, 1.6, 3), rng.uniform(0.2, 0.8, 3)], 1)
+             if kind == "se" else np.stack(
+                 [rng.uniform(0.5, 1.5, 3), rng.uniform(0.3, 1.2, 3),
+                  rng.uniform(0.05, 0.4, 3), rng.uniform(0.03, 0.2, 3),
+                  rng.uniform(0.7, 1.0, 3)], 1))
+    out = np.empty((3, n, n))
+    rc = fn(n, *(a.ctypes.data_as(ctypes.c_void_p) for a in (X, nid, theta)), 3,
+            out.ctypes.data_as(ctypes.c_void_p))
+    assert rc == 0
+    ref = cov_cuda.cov_plain(kind, torch.tensor(X), torch.tensor(nid), torch.tensor(theta))
+    np.testing.assert_allclose(out, ref.numpy(), rtol=1e-12, atol=1e-14)
+    vv = (nid[:, None] == 0) & (nid[None, :] == 0)
+    assert (out == out.transpose(0, 2, 1))[:, vv].all()
+    bad = (nid < 0) | (nid > 1)
+    assert (out[:, bad, :] == 0).all() and (out[:, :, bad] == 0).all()
