@@ -10,15 +10,25 @@ Phases (any failure raises and exits non-zero; no phase falls back):
 2. build: compiles the evidence kernel and the covariance kernel, every
    kind and dtype, from ``gptools_tpu_torch/csrc`` with one ``nvcc`` call
    for ``sm_90a`` (into ``gptools_tpu_torch/_build``).
+   Then, per evidence instantiation, the compiler's registers, stack
+   frame and spill bytes (``-Xptxas -v``; a spill fails the run), and the
+   dynamic shared memory of a block at the configs' N.
 3. kernel parity, kernel vs plain PyTorch version on the card, on the
    inputs the main paths give it (theta rows and aux channels from
    `GPModel._evidence_inputs`): config 4 (kind gibbs_tanh, N = 27) at
-   C = 12288 and 1000; config 2 (se, N = 32) and config 3 (matern52 with
-   aux mu and w, N = 35) at C = 4096 and 1000; the se_noise (se + nd) and
-   warped_se_deriv (se + w + wp) models at C = 256. float64: ll rtol 1e-9,
-   gradient and aux cotangents rtol 1e-7 / atol 1e-9; float32: the bounds
-   below; the -inf contract on every output; CUDA-event times of kernel and
-   plain version at the main paths' C, and the kernel's bound.
+   C = 12288, 1000, 1 and 1023 (a C that fills no last block); config 2
+   (se, N = 32) and config 3 (matern52 with aux mu and w, N = 35) at
+   C = 4096, 1000, 1 and 1023; the se_noise (se + nd) and warped_se_deriv
+   (se + w + wp) models at C = 256; an se_noise model at N = 48 (the
+   largest shared-memory case) at C = 1023, float64. float64: ll rtol
+   1e-9, gradient and aux cotangents rtol 1e-7 / atol 1e-9; float32: the
+   bounds below; the -inf contract on every output; three calls at the
+   main paths' C give the same bits; at the main paths' C and at C = 1024
+   (the SMC particles), the kernel's device time per launch (CUDA events
+   around a CUDA graph of 20 launches), its time per call through the
+   wrapper, the plain version's per call (main paths' C only), the bound,
+   and, for scale, the time of ``torch.linalg.cholesky_ex`` on a (C, N, N)
+   batch of the same covariances (the factorization alone).
 3b. covariance-kernel parity, kernel vs plain PyTorch version (the fused
    single-theta builders) on the card: config 4 (gibbs_tanh, N = 27) and
    config 2 (se, N = 32) at theta batch B = 1 and 512 (the MCMC
@@ -81,7 +91,7 @@ F32_GRAD_RTOL = 1e-2
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 PEAK_BYTES = 3.35e12
 # flops per lower-triangle pair of the build and its VJP, counted from
-# csrc/evidence_chain.cuh (a transcendental counts as one): the Gibbs pair
+# csrc/pair_math.cuh (a transcendental counts as one): the Gibbs pair
 # carries the g1/g2/dg2dx algebra and its hand VJP, the stationary pairs a
 # few products around one exp.
 PAIR_FLOPS = {"gibbs_tanh": 150, "se": 45, "matern52": 55}
@@ -100,9 +110,12 @@ SERVE_REQUESTS = 20
 SERVE_POINTS = 200
 SERVE_MAX_SAMPLES = 512
 SERVE_BUILDS = 5
-# config -> (pipeline chains, warmup, samples, parity C values)
-PATHS = {4: (12288, 75, 300, (12288, 1000)), 2: (4096, 100, 500, (4096, 1000)),
-         3: (4096, 100, 500, (4096, 1000))}
+# config -> (pipeline chains, warmup, samples, parity C values: the main
+# path's, 1000, and two that fill no block of 4 warps, 1 and 1023)
+PATHS = {4: (12288, 75, 300, (12288, 1000, 1, 1023)),
+         2: (4096, 100, 500, (4096, 1000, 1, 1023)),
+         3: (4096, 100, 500, (4096, 1000, 1, 1023))}
+SMC_PARTICLES = 1024  # the SMC rounds' C; timed beside the main paths' C
 KIND_OF = {4: "gibbs_tanh", 2: "se", 3: "matern52"}
 
 
@@ -152,6 +165,37 @@ def cuda_ms(fn, reps=30, warm=3):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def graph_ms(fn, calls=20, reps=15):
+    """Median milliseconds per call of ``fn`` on the device alone: ``calls``
+    calls captured in one CUDA graph, replayed between two CUDA events (no
+    host overhead between the launches, unlike `cuda_ms`)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
     return float(np.median(times))
 
 
@@ -205,9 +249,9 @@ def kernel_inputs(model, data, thetas):
     return thT.contiguous(), ev, {k: v.contiguous() for k, v in aux.items()}
 
 
-def parity(tag, model, data, thetas64):
-    """Kernel vs plain version at one shape, float64 and float32, and the
-    -inf contract; returns the float64 max abs error over every output."""
+def parity(tag, model, data, thetas64, f32=True):
+    """Kernel vs plain version at one shape, float64 and (with ``f32``)
+    float32; returns the float64 max abs error over every output."""
     import torch
 
     from gptools_tpu_torch.ops import evidence_cuda as ec
@@ -231,6 +275,8 @@ def parity(tag, model, data, thetas64):
           f"{g_margin:.3e} (must be <= 0); max abs err {err:.3e}")
     if not ll_rel <= 1e-9 or not g_margin <= 0.0:
         fail(f"{tag}: f64 kernel/plain disagree")
+    if not f32:
+        return err
 
     # float32 on the main path's float32 inputs (aux formed in float32)
     thT32, ev, aux32 = kernel_inputs(model, data, thetas64.float())
@@ -275,6 +321,54 @@ def neg_inf_contract(tag, model, data, thetas64):
             fail(f"{tag}: -inf contract")
 
 
+def determinism(tag, model, data, thetas64):
+    """Three calls on the same inputs give the same bits in ll, the
+    gradient and every cotangent (no atomics; sums in a fixed order)."""
+    import torch
+
+    from gptools_tpu_torch.ops import evidence_cuda as ec
+
+    for dtype in (torch.float32, torch.float64):
+        thT, ev, aux = kernel_inputs(model, data, thetas64.to(dtype))
+        outs = [ec.loglik_vag_cuda(thT, ev, aux) for _ in range(3)]
+        flat = [[o[0], o[1], *(o[2][k] for k in aux)] for o in outs]
+        same = all(torch.equal(a, b) for f in flat[1:] for a, b in zip(flat[0], f))
+        print(f"phase3 {tag} determinism {dtype} C={thT.shape[1]}: three calls "
+              f"bitwise equal: {same}")
+        if not same:
+            fail(f"{tag}: kernel calls on the same inputs differ")
+
+
+def kernel_times(tag, model, data, thetas, card, plain=True):
+    """The kernel's device time per launch (`graph_ms`) and its time per
+    call through the wrapper (`cuda_ms`, host work included), the plain
+    version's per call, the kernel's bound, and the time of
+    torch.linalg.cholesky_ex on a (C, N, N) batch of the same covariances.
+    Returns (ms, plain_ms or None, bound_ms, bound_by), ms the device time."""
+    import torch
+
+    from gptools_tpu_torch.ops import evidence_cuda as ec
+
+    thT, ev, aux = kernel_inputs(model, data, thetas)
+    t_k = graph_ms(lambda: ec.loglik_vag_cuda(thT, ev, aux))
+    t_call = cuda_ms(lambda: ec.loglik_vag_cuda(thT, ev, aux))
+    t_p = cuda_ms(lambda: ec.loglik_vag_plain(thT, ev, aux)) if plain else None
+    b_ms, b_by = bound(ev, thT, aux)
+    K = ec._plain_cov(ev, thT, aux) + torch.diag(ev.err2.to(thT.dtype))[:, :, None]
+    if "nd" in aux:
+        K = K + torch.diag_embed(aux["nd"].T).permute(1, 2, 0)
+    K = K.permute(2, 0, 1).contiguous()
+    t_chol = cuda_ms(lambda: torch.linalg.cholesky_ex(K))
+    plain_txt = "not timed" if t_p is None else f"{t_p:.4f} ms"
+    print(f"phase3 time {tag} C={thT.shape[1]} N={ev.n} aux={sorted(aux)} {thT.dtype}: "
+          f"kernel {t_k:.4f} ms per launch (CUDA graph of 20), {t_call:.4f} ms per call; "
+          f"plain {plain_txt} per call; bound {b_ms * 1e3:.3f} us ({b_by}); kernel at "
+          f"{100 * b_ms / t_k:.2f}% of the bound; for scale, torch.linalg.cholesky_ex "
+          f"on the (C, N, N) covariances {t_chol:.4f} ms per call (medians, CUDA "
+          f"events; {card})")
+    return t_k, t_p, b_ms, b_by
+
+
 def variant_problems(dev):
     """The se_noise and warped_se_deriv models of the reference's
     test_evidence_pallas.py::_model_variants, data from a numpy seed."""
@@ -295,11 +389,20 @@ def variant_problems(dev):
         b.add(np.array([lo, hi]), np.zeros(2), err_y=0.05, n=1)
         return b.build(torch.float64, dev)
 
+    def data48():  # N_MAX = 48 points: 46 values and 2 end slopes
+        b = DatasetBuilder(1)
+        X = np.sort(rng.uniform(0.0, 1.2, 46))
+        b.add(X, np.sin(X), err_y=0.1)
+        b.add(np.array([0.0, 1.2]), np.zeros(2), err_y=0.05, n=1)
+        return b.build(torch.float64, dev)
+
     return [
         ("se_noise", GPModel(SquaredExponentialKernel(),
                              noise_kernel=DiagonalNoiseKernel(n=0)), data(0.0, 1.2)),
         ("warped_se_deriv", GPModel(WarpedKernel(SquaredExponentialKernel(), BetaWarp())),
          data(0.05, 0.95)),
+        ("se_noise_n48", GPModel(SquaredExponentialKernel(),
+                                 noise_kernel=DiagonalNoiseKernel(n=0)), data48()),
     ]
 
 
@@ -548,6 +651,121 @@ def serve(config, thetas, dev, card):
     return pallas_launches
 
 
+KIND_IDS = {"0": "gibbs_tanh", "1": "se", "2": "matern52"}
+
+
+def ptxas_report(log):
+    """{evidence instantiation: (registers, stack frame, spill stores, spill
+    loads, static smem bytes)} from the ``-Xptxas -v`` log."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"evidence_kernelI([fd])Li(\d)E", m.group(1))
+            name = (f"evidence_kernel<{'float' if k.group(1) == 'f' else 'double'}, "
+                    f"{KIND_IDS[k.group(2)]}>") if k else None
+            if name:
+                out[name] = [None] * 5
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name][1:4] = [int(v) for v in m.groups()]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name][0] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name][4] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def build_phase():
+    """Phase 2: build both kernels; print the compiler's report and, per
+    evidence instantiation, its registers, stack frame and spills (none
+    allowed), and the dynamic shared memory of a block at the configs' N."""
+    import torch
+
+    from gptools_tpu_torch.ops import evidence_cuda
+
+    so = evidence_cuda.build()
+    info = evidence_cuda.BUILD_INFO
+    print(f"phase2 build: {'cached' if info.get('cached') else 'nvcc'} "
+          f"{info.get('seconds', 0.0):.3f} s -> {so}")
+    if info.get("cmd"):
+        print(f"phase2 cmd: {info['cmd']}")
+    log = info.get("log", "")
+    for line in log.splitlines():
+        if ("registers" in line or "stack frame" in line or "Compiling" in line
+                or "smem" in line):
+            print(f"phase2 ptxas: {line.strip()}")
+    report = ptxas_report(log)
+    if not info.get("cached") and len(report) != 2 * len(evidence_cuda.KINDS):
+        fail(f"ptxas report lists {sorted(report)}, not every evidence instantiation")
+    for name, (regs, frame, st, ld, smem) in sorted(report.items()):
+        dt = torch.float64 if "double" in name else torch.float32
+        dyn = {n: evidence_cuda.smem_bytes(n, dt) for n in (27, 32, 35, evidence_cuda.N_MAX)}
+        print(f"phase2 {name}: {regs} registers, {frame} bytes stack frame, {st} bytes "
+              f"spill stores, {ld} bytes spill loads, {smem} bytes static smem; dynamic "
+              f"smem per block of 4 chains (bytes) at N = 27/32/35/48: "
+              f"{[dyn[n] for n in sorted(dyn)]}")
+        if st or ld:
+            fail(f"{name} spills registers")
+
+
+def kernel_phase(dev, card):
+    """Phase 3: the evidence kernel against its plain version at every
+    shape of the module docstring, the -inf contract, determinism, and
+    times. Returns the kernel table's evidence rows (float32 times at the
+    main paths' C, float64 max abs error over every parity shape)."""
+    import torch
+
+    from gptools_tpu_torch import configs
+
+    table = {}
+    for config in (4, 2, 3):
+        k = KIND_OF[config]
+        tag = f"config{config} {k}"
+        prob = configs.ALL_CONFIGS[config](dtype=torch.float64, device=dev)
+        m, d = prob.model, prob.data
+        errs = [parity(tag, m, d, posterior_draws(config, C, torch.float64, dev, seed=C))
+                for C in PATHS[config][3]]
+        neg_inf_contract(tag, m, d, posterior_draws(config, 8, torch.float64, dev, seed=1))
+        C = PATHS[config][0]
+        determinism(tag, m, d, posterior_draws(config, C, torch.float64, dev, seed=5))
+        row = {"max_abs_err": max(errs)}
+        for dtype in (torch.float32, torch.float64):
+            t_k, t_p, b_ms, b_by = kernel_times(
+                tag, m, d, posterior_draws(config, C, dtype, dev, seed=3), card)
+            if dtype == torch.float32:
+                row.update(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+            kernel_times(tag, m, d, posterior_draws(config, SMC_PARTICLES, dtype, dev, seed=4),
+                         card, plain=False)
+        table[k] = row
+    rng = np.random.default_rng(SEED)
+    for tag, m, d in variant_problems(dev):
+        if tag == "se_noise_n48":
+            th = torch.tensor(rng.uniform(0.4, 1.2, (1023, m.num_params)), device=dev)
+            err = parity(tag, m, d, th, f32=False)
+            neg_inf_contract(tag, m, d, th)
+            table["se"]["max_abs_err"] = max(table["se"]["max_abs_err"], err)
+            kernel_times(tag, m, d, th, card, plain=False)
+            continue
+        th = torch.tensor(rng.uniform(0.4, 1.2, (256, m.num_params)), device=dev)
+        err = parity(tag, m, d, th)
+        neg_inf_contract(tag, m, d, th)
+        table["se"]["max_abs_err"] = max(table["se"]["max_abs_err"], err)
+        # the nd and wp channels are on no config's path: timed here at the
+        # configs' C = 4096
+        for dtype in (torch.float32, torch.float64):
+            kernel_times(tag, m, d, torch.tensor(
+                rng.uniform(0.4, 1.2, (4096, m.num_params)), dtype=dtype, device=dev), card)
+    return table
+
+
 def main():
     import torch
 
@@ -557,7 +775,6 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     from gptools_tpu_torch import configs
-    from gptools_tpu_torch.ops import evidence_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -568,61 +785,10 @@ def main():
           f"cuda {torch.version.cuda}; devices {torch.cuda.device_count()}")
 
     # ---- phase 2: build --------------------------------------------------
-    so = evidence_cuda.build()
-    info = evidence_cuda.BUILD_INFO
-    print(f"phase2 build: {'cached' if info.get('cached') else 'nvcc'} "
-          f"{info.get('seconds', 0.0):.3f} s -> {so}")
-    if info.get("cmd"):
-        print(f"phase2 cmd: {info['cmd']}")
-    for line in info.get("log", "").splitlines():
-        if ("registers" in line or "stack frame" in line or "Compiling" in line
-                or "smem" in line):
-            print(f"phase2 ptxas: {line.strip()}")
+    build_phase()
 
     # ---- phase 3: kernel parity and times --------------------------------
-    table = {}
-    for config in (4, 2, 3):
-        k = KIND_OF[config]
-        prob = configs.ALL_CONFIGS[config](dtype=torch.float64, device=dev)
-        m, d = prob.model, prob.data
-        errs = [parity(f"config{config} {k}", m, d,
-                       posterior_draws(config, C, torch.float64, dev, seed=C))
-                for C in PATHS[config][3]]
-        neg_inf_contract(f"config{config} {k}", m, d,
-                         posterior_draws(config, 8, torch.float64, dev, seed=1))
-        C = PATHS[config][3][0]
-        row = {"max_abs_err": max(errs)}
-        for dtype in (torch.float32, torch.float64):
-            thT, ev, aux = kernel_inputs(
-                m, d, posterior_draws(config, C, dtype, dev, seed=3))
-            t_k = cuda_ms(lambda: evidence_cuda.loglik_vag_cuda(thT, ev, aux))
-            t_p = cuda_ms(lambda: evidence_cuda.loglik_vag_plain(thT, ev, aux))
-            b_ms, b_by = bound(ev, thT, aux)
-            print(f"phase3 time config{config} {k} C={C} N={ev.n} aux={sorted(aux)} "
-                  f"{dtype}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-                  f"{b_ms * 1e3:.3f} us ({b_by}); kernel at {100 * b_ms / t_k:.2f}% "
-                  f"of the bound (median of 30, CUDA events; {card})")
-            if dtype == torch.float32:
-                row.update(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
-        table[k] = row
-    rng = np.random.default_rng(SEED)
-    for tag, m, d in variant_problems(dev):
-        th = torch.tensor(rng.uniform(0.4, 1.2, (256, m.num_params)), device=dev)
-        err = parity(tag, m, d, th)
-        neg_inf_contract(tag, m, d, th)
-        table["se"]["max_abs_err"] = max(table["se"]["max_abs_err"], err)
-        # the nd and wp channels are on no config's path: timed here at the
-        # configs' C = 4096
-        for dtype in (torch.float32, torch.float64):
-            thT, ev, aux = kernel_inputs(m, d, torch.tensor(
-                rng.uniform(0.4, 1.2, (4096, m.num_params)), dtype=dtype, device=dev))
-            t_k = cuda_ms(lambda: evidence_cuda.loglik_vag_cuda(thT, ev, aux))
-            t_p = cuda_ms(lambda: evidence_cuda.loglik_vag_plain(thT, ev, aux))
-            b_ms, b_by = bound(ev, thT, aux)
-            print(f"phase3 time {tag} se C=4096 N={ev.n} aux={sorted(aux)} {dtype}: "
-                  f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms * 1e3:.3f} us "
-                  f"({b_by}); kernel at {100 * b_ms / t_k:.2f}% of the bound (median "
-                  f"of 30, CUDA events; {card})")
+    table = kernel_phase(dev, card)
 
     # ---- phase 3b: covariance-kernel parity and times --------------------
     cov_table = {}

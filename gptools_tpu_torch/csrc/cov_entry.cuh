@@ -3,7 +3,7 @@
 // (evidence_chain_host.cpp).
 //
 // The per-point operands and the pair math are the evidence kernel's
-// (evidence_chain.cuh): `tanh_warp` gives l(x) and l'(x) of the Gibbs-tanh
+// (pair_math.cuh): `tanh_warp` gives l(x) and l'(x) of the Gibbs-tanh
 // kernel, `gibbs_pair_value` and `stat_pair<T, SE>` one entry of a
 // derivative block. An entry of rows i, j takes the block
 // sel = 2 nid_i + nid_j (0 value-value, 1 value-slope, 2 slope-value,
@@ -12,7 +12,7 @@
 
 #pragma once
 
-#include "evidence_chain.cuh"
+#include "pair_math.cuh"
 
 namespace gt {
 

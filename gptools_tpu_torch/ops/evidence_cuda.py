@@ -22,12 +22,24 @@ Aux channels, each (N, C) in the theta dtype, as in the reference:
 
 Routes, chosen by the device of ``thetaT`` and nothing else:
 
-- CUDA: the kernel in ``csrc/`` (one thread per chain; see
-  ``csrc/evidence_chain.cuh``). It is compiled by ``nvcc`` for ``sm_90a``
+- CUDA: the kernel in ``csrc/``, one warp per chain. A block of 4 warps
+  serves 4 consecutive chains; each chain's matrices (K, then L and the
+  pair cotangents in one n x ld square; Z^T = L^-T and then the second
+  operand's cotangents in another) and per-point vectors live in the
+  block's dynamic shared memory, which the C entry point sizes from n and
+  the dtype (`smem_bytes`: ~33 KB a block at config 4's n = 27 in float32,
+  ~181 KB at n = 48 in float64, above 48 KB by raising the kernel's limit
+  once). The 32 lanes split every phase of the algorithm (pairs, rows,
+  points; the Cholesky two columns a phase, with the solve and L^-1 as its
+  extra rows) and sum across lanes in a fixed order, with no atomics, so
+  a call is deterministic; see ``csrc/evidence_chain.cuh``. It is
+  compiled by ``nvcc`` for ``sm_90a``
   at the first CUDA call, together with the covariance kernel
   (`ops.cov_cuda`), into one shared library with a plain C interface,
   cached under ``gptools_tpu_torch/_build/`` by a hash of the sources, and
-  bound with ctypes (`build`, `library`). A build or launch failure raises.
+  bound with ctypes (`build`, `library`). A build failure raises, and so
+  does any nonzero ``cudaError`` from the entry point (a refused launch
+  never runs); nothing falls back to the plain version.
 - CPU: `loglik_vag_plain`, the plain PyTorch version (fused covariance build
   + `evidence.loglik_b`, gradients by autograd).
 
@@ -61,6 +73,8 @@ __all__ = [
     "reset_counts",
     "build",
     "library",
+    "bind",
+    "smem_bytes",
     "supported",
     "make_data",
     "loglik_vag_plain",
@@ -79,7 +93,8 @@ PLAIN_CALLS = {k: 0 for k in KINDS}
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
-_SOURCES = ("evidence_chain.cuh", "cov_entry.cuh", "evidence_kernel.cu", "cov_kernel.cu")
+_SOURCES = ("pair_math.cuh", "evidence_chain.cuh", "cov_entry.cuh", "evidence_kernel.cu",
+            "cov_kernel.cu")
 _UNITS = ("evidence_kernel.cu", "cov_kernel.cu")  # compiled and linked by one nvcc
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -188,29 +203,42 @@ def library() -> ctypes.CDLL:
     theta, B, out, stream)``."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for dt in ("f32", "f64"):
-            for kind in KINDS:
-                fn = getattr(lib, f"gt_{kind}_evidence_{dt}")
-                fn.argtypes = (
-                    [ctypes.c_int]                 # n
-                    + [ctypes.c_void_p] * 4        # X, nid, y, err2
-                    + [ctypes.c_double]            # diag_factor
-                    + [ctypes.c_void_p, ctypes.c_int]  # thetaT, C
-                    + [ctypes.c_void_p] * 4        # mu, nd, w, wp
-                    + [ctypes.c_void_p] * 6        # ll, grad, gmu, gnd, gw, gwp
-                    + [ctypes.c_void_p]            # stream
-                )
-                fn.restype = ctypes.c_int
-            for kind in ("se", "gibbs_tanh"):
-                fn = getattr(lib, f"gt_{kind}_cov_{dt}")
-                fn.argtypes = (
-                    [ctypes.c_int] + [ctypes.c_void_p] * 3  # n, X, nid, theta
-                    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]  # B, out, stream
-                )
-                fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = bind(ctypes.CDLL(str(build())))
     return _LIB
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of every entry point of a kernel library."""
+    for dt in ("f32", "f64"):
+        for kind in KINDS:
+            fn = getattr(lib, f"gt_{kind}_evidence_{dt}")
+            fn.argtypes = (
+                [ctypes.c_int]                 # n
+                + [ctypes.c_void_p] * 4        # X, nid, y, err2
+                + [ctypes.c_double]            # diag_factor
+                + [ctypes.c_void_p, ctypes.c_int]  # thetaT, C
+                + [ctypes.c_void_p] * 4        # mu, nd, w, wp
+                + [ctypes.c_void_p] * 6        # ll, grad, gmu, gnd, gw, gwp
+                + [ctypes.c_void_p]            # stream
+            )
+            fn.restype = ctypes.c_int
+        fn = getattr(lib, f"gt_evidence_smem_{dt}")
+        fn.argtypes = [ctypes.c_int]  # n
+        fn.restype = ctypes.c_int
+        for kind in ("se", "gibbs_tanh"):
+            fn = getattr(lib, f"gt_{kind}_cov_{dt}")
+            fn.argtypes = (
+                [ctypes.c_int] + [ctypes.c_void_p] * 3  # n, X, nid, theta
+                + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]  # B, out, stream
+            )
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def smem_bytes(n: int, dtype: torch.dtype) -> int:
+    """Bytes of dynamic shared memory of one evidence block (4 chains) at n
+    points, as the C entry point sizes its launch (builds the library)."""
+    return getattr(library(), f"gt_evidence_smem_{'f64' if dtype == torch.float64 else 'f32'}")(n)
 
 
 def _check_theta(thetaT: torch.Tensor, ev: EvidenceData):

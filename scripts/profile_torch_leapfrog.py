@@ -13,10 +13,18 @@ For each config, in float32 at the chain count `chip_smoke.py` runs it:
   share, and the kernel launches, host-to-device copies and
   synchronizations per step.
 
+With ``--phases``, also where one evidence-kernel call spends its time:
+a copy of the kernels whose warp team reads clock64() after every phase of
+the chain body (block 0's first warp, so chain 0), built beside the real
+one, run at the config's chains and at 1024 (the SMC particles); SM clock
+cycles per phase (the Cholesky summed over its steps).
+
     python scripts/profile_torch_leapfrog.py                # configs 4 2 3
     python scripts/profile_torch_leapfrog.py --configs 3 --steps 100
+    python scripts/profile_torch_leapfrog.py --phases
 
-Prints the card line and one JSON object per config. Needs a CUDA device.
+Prints the card line and one JSON object per config (and per phase run).
+Needs a CUDA device.
 """
 
 import argparse
@@ -137,11 +145,105 @@ def profile_config(config, steps, prof_steps, card, dev):
     }
 
 
+# (text in csrc, its replacement): the clock64() marks of the phase build
+PHASE_PATCHES = (
+    ("evidence_chain.cuh", "// The lanes of one warp",
+     "__device__ long long gt_phase_clk[256];\n// The lanes of one warp"),
+    ("evidence_chain.cuh", "struct WarpTeam {\n  int lane;",
+     "struct WarpTeam {\n  int lane;\n  mutable int mark = 0;"),
+    ("evidence_chain.cuh", "    f(lane);\n    __syncwarp();\n  }",
+     "    f(lane);\n    __syncwarp();\n    if (blockIdx.x == 0 && threadIdx.x == 0) "
+     "gt_phase_clk[1 + mark] = clock64();\n    ++mark;\n  }"),
+    ("evidence_kernel.cu", "  // ---- one warp per chain",
+     "  if (blockIdx.x == 0 && threadIdx.x == 0) gt::gt_phase_clk[0] = clock64();\n"
+     "  // ---- one warp per chain"),
+)
+PHASE_READER = """
+extern "C" int gt_phase_clocks(long long* out, int reset) {
+  static long long zero[256];
+  if (reset) return int(cudaMemcpyToSymbol(gt::gt_phase_clk, zero, sizeof zero));
+  return int(cudaMemcpyFromSymbol(out, gt::gt_phase_clk, sizeof zero));
+}
+"""
+
+
+def phase_library():
+    """Build and bind the clock64()-instrumented copy of the kernels."""
+    import ctypes
+    import shutil
+
+    from gptools_tpu_torch.ops import evidence_cuda as ec
+
+    d = ec._BUILD_DIR / "phases"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(ec._CSRC, d)
+    for name, old, new in PHASE_PATCHES:
+        text = (d / name).read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"phase marks: {old!r} not found once in {name}")
+        (d / name).write_text(text.replace(old, new))
+    with open(d / "evidence_kernel.cu", "a") as f:
+        f.write(PHASE_READER)
+    so = d / "libphases.so"
+    subprocess.run([ec._nvcc(), *ec._NVCC_FLAGS, "-o", str(so),
+                    *(str(d / u) for u in ec._UNITS)], check=True, capture_output=True)
+    lib = ec.bind(ctypes.CDLL(str(so)))
+    lib.gt_phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return lib
+
+
+def kernel_phases(config, C, lib, card, dev):
+    """SM cycles per phase of chain 0 in one float32 evidence call at C
+    chains on posterior-typical thetas (golden mean +- 1 std)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from gptools_tpu_torch import configs
+    from gptools_tpu_torch.ops import evidence_cuda as ec
+
+    prob = configs.ALL_CONFIGS[config](dtype=torch.float64, device=dev)
+    with open(os.path.join(ROOT, "tests", f"golden_config{config}.json")) as f:
+        gold = json.load(f)
+    gm, gs = np.asarray(gold["mean"]), np.asarray(gold["std"])
+    th = gm + gs * np.random.default_rng(3).uniform(-1.0, 1.0, (C, gm.shape[0]))
+    with torch.no_grad():
+        thT, ev, aux = prob.model._evidence_inputs(
+            torch.tensor(th.T, dtype=torch.float32, device=dev), prob.data)
+    thT, aux = thT.contiguous(), {k: v.contiguous() for k, v in aux.items()}
+    real, ec._LIB = ec._LIB, lib
+    try:
+        ec.loglik_vag_cuda(thT, ev, aux)
+        torch.cuda.synchronize()
+        lib.gt_phase_clocks(None, 1)
+        ec.loglik_vag_cuda(thT, ev, aux)
+        torch.cuda.synchronize()
+    finally:
+        ec._LIB = real
+    buf = (ctypes.c_longlong * 256)()
+    lib.gt_phase_clocks(buf, 0)
+    marks = [buf[0]] + [buf[i] for i in range(1, 256) if buf[i] != 0]
+    d = [b - a for a, b in zip(marks, marks[1:])]
+    steps = (ev.n + 1) // 2
+    if len(d) != 2 + steps + 6:
+        raise RuntimeError(f"phase marks: {len(d)} phases, expected {8 + steps}")
+    names = ("ll", "alpha_diag_kinv", "kinv_pairs", "pair_vjp", "point_sums", "outputs")
+    return {
+        "config": config, "dtype": "float32", "chains": C, "n": ev.n,
+        "cycles": {"operands": d[0], "build": d[1], "cholesky": sum(d[2:2 + steps]),
+                   **dict(zip(names, d[2 + steps:]))},
+        "cholesky_steps": steps, "total_cycles": sum(d), "card": card,
+    }
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", type=int, nargs="*", default=[4, 2, 3])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--prof-steps", type=int, default=20)
+    ap.add_argument("--phases", action="store_true",
+                    help="also the evidence kernel's cycles per phase")
     args = ap.parse_args()
 
     import torch
@@ -155,6 +257,12 @@ def main():
     for c in args.configs:
         row = profile_config(c, args.steps, args.prof_steps, card, torch.device("cuda", 0))
         print(json.dumps(row), flush=True)
+    if args.phases:
+        lib = phase_library()
+        for c in args.configs:
+            for C in (CHAINS[c], 1024):
+                print(json.dumps(kernel_phases(c, C, lib, card, torch.device("cuda", 0))),
+                      flush=True)
     return 0
 
 

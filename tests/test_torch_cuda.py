@@ -8,7 +8,10 @@ Kernel vs plain version on the same device: float64 at ll rtol 1e-9, grad
 draws; float32 within the tolerances stated in chip_smoke.py. Config 4
 holds kind gibbs_tanh; configs 2 and 3 hold kinds se and matern52 with the
 aux channels their models build (none; mu and w), and the se_noise and
-warped_se_deriv models hold nd, w and wp. The covariance kernel
+warped_se_deriv models hold nd, w and wp (se_noise also at N = 48, the
+largest shared-memory case); the kernel is held at C = 1 and at C that
+fill no block of 4 warps, and three calls must give the same bits. The
+covariance kernel
 (`cov_cuda`) is held to its plain version at theta batches 1 and 512 on
 configs 4 (gibbs_tanh) and 2 (se), with its VJP and the pallas-backend
 serving predictor.
@@ -57,7 +60,7 @@ def _draws(C, dtype, dev, seed=0):
     return torch.tensor(th.T.copy(), dtype=dtype, device=dev)
 
 
-@pytest.mark.parametrize("C", [1, 63, 1000])
+@pytest.mark.parametrize("C", [1, 63, 1000, 1023])
 def test_kernel_matches_plain_f64(dev, problem, C):
     _, ev = problem
     th = _draws(C, torch.float64, dev, seed=C)
@@ -69,13 +72,25 @@ def test_kernel_matches_plain_f64(dev, problem, C):
     np.testing.assert_allclose(gk.cpu().numpy(), gp.cpu().numpy(), rtol=1e-7, atol=1e-9)
 
 
-def test_kernel_matches_plain_f32(dev, problem):
+@pytest.mark.parametrize("C", [1, 1023, 4096])
+def test_kernel_matches_plain_f32(dev, problem, C):
     _, ev = problem
-    th = _draws(4096, torch.float32, dev, seed=1)
+    th = _draws(C, torch.float32, dev, seed=1)
     llk, gk = evidence_cuda.loglik_vag_cuda(th, ev)
     llp, gp = evidence_cuda.loglik_vag_plain(th, ev)
     assert float(((llk - llp).abs() / llp.abs().clamp(min=1.0)).max()) <= 1e-3
     assert float(((gk - gp).norm(dim=0) / gp.norm(dim=0)).max()) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_kernel_is_deterministic(dev, problem, dtype):
+    """Three calls at config 4's 12288 chains give the same bits (no
+    atomics; every sum in a fixed order)."""
+    _, ev = problem
+    th = _draws(12288, dtype, dev, seed=7)
+    outs = [evidence_cuda.loglik_vag_cuda(th, ev) for _ in range(3)]
+    for ll, g in outs[1:]:
+        assert torch.equal(ll, outs[0][0]) and torch.equal(g, outs[0][1])
 
 
 def test_failure_contract(dev, problem):
@@ -127,14 +142,16 @@ def _golden_draws(config, C, dtype, dev, seed):
 
 def _variant(name, dev):
     """The se_noise / warped_se_deriv models of the reference's
-    tests/test_evidence_pallas.py::_model_variants on seeded data."""
+    tests/test_evidence_pallas.py::_model_variants on seeded data;
+    se_noise_n48 is se_noise at N_MAX = 48 points (46 values), the kernel's
+    largest shared-memory case."""
     rng = np.random.default_rng(5)
-    lo, hi = (0.0, 1.2) if name == "se_noise" else (0.05, 0.95)
+    lo, hi = (0.05, 0.95) if name == "warped_se_deriv" else (0.0, 1.2)
     b = DatasetBuilder(1)
-    X = np.sort(rng.uniform(lo, hi, 7))
+    X = np.sort(rng.uniform(lo, hi, 46 if name == "se_noise_n48" else 7))
     b.add(X, np.sin(X), err_y=0.1)
     b.add(np.array([lo, hi]), np.zeros(2), err_y=0.05, n=1)
-    if name == "se_noise":
+    if name != "warped_se_deriv":
         model = GPModel(SquaredExponentialKernel(), noise_kernel=DiagonalNoiseKernel(n=0))
     else:
         model = GPModel(WarpedKernel(SquaredExponentialKernel(), BetaWarp()))
@@ -167,16 +184,17 @@ def stationary(dev, request):
     return request.param, configs.ALL_CONFIGS[request.param](dtype=torch.float64, device=dev)
 
 
-@pytest.mark.parametrize("C", [1, 63, 1000])
+@pytest.mark.parametrize("C", [1, 63, 1000, 1023])
 def test_stationary_kernel_matches_plain_f64(dev, stationary, C):
     config, prob = stationary
     thetas = _golden_draws(config, C, torch.float64, dev, seed=C)
     _assert_kernel_matches_plain_f64(prob.model, prob.data, thetas)
 
 
-@pytest.mark.parametrize("name", ["se_noise", "warped_se_deriv"])
+@pytest.mark.parametrize("name", ["se_noise", "warped_se_deriv", "se_noise_n48"])
 def test_aux_variant_kernel_matches_plain_f64(dev, name):
     model, data = _variant(name, dev)
+    assert data.Xf.shape[0] == (48 if name == "se_noise_n48" else 9)
     rng = np.random.default_rng(6)
     thetas = torch.tensor(rng.uniform(0.4, 1.2, (63, model.num_params)), device=dev)
     _assert_kernel_matches_plain_f64(model, data, thetas)
@@ -193,6 +211,19 @@ def test_stationary_kernel_matches_plain_f32(dev, stationary):
     gp = [outp[1]] + [outp[2][k] for k in aux]
     for a, b in zip(gk, gp):
         assert float(((a - b).norm(dim=0) / b.norm(dim=0)).max()) <= 1e-2
+
+
+def test_stationary_kernel_is_deterministic(dev, stationary):
+    """Three calls at the main path's 4096 chains, with config 3's aux
+    channels, give the same bits in ll, the gradient and every cotangent."""
+    config, prob = stationary
+    for dtype in (torch.float32, torch.float64):
+        thT, ev, aux = _inputs(prob.model, prob.data,
+                               _golden_draws(config, 4096, dtype, dev, seed=8))
+        outs = [evidence_cuda.loglik_vag_cuda(thT, ev, aux) for _ in range(3)]
+        flat = [[o[0], o[1], *(o[2][k] for k in aux)] for o in outs]
+        for f in flat[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(flat[0], f))
 
 
 def test_stationary_failure_contract(dev, stationary):

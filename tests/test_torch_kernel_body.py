@@ -2,11 +2,13 @@
 PyTorch versions, float64.
 
 `gptools_tpu_torch/csrc/evidence_chain.cuh` holds the evidence kernel's
-whole per-chain algorithm for every pair kind and aux channel, with
-hand-derived gradients (held to autograd at 1e-10); `cov_entry.cuh` the
-covariance kernel's per-point and per-entry functions (held to the fused
-single-theta builders at 1e-12). `evidence_chain_host.cpp` builds both with
-the host C++ compiler. Skips when no C++ compiler is installed.
+warp-per-chain body for every pair kind and aux channel, with hand-derived
+gradients (held to autograd at 1e-10); the host build runs its 32 lanes
+phase by phase, in order 0..31 and, for the lane-order test, 31..0, which
+must give the same bits. `cov_entry.cuh` holds the covariance kernel's
+per-point and per-entry functions (held to the fused single-theta builders
+at 1e-12). `evidence_chain_host.cpp` builds both with the host C++
+compiler. Skips when no C++ compiler is installed.
 """
 
 import ctypes
@@ -50,21 +52,23 @@ def host_lib(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def body(host_lib):
-    """``run(thetaT, ev, aux=None) -> (ll, grad, gaux)`` through the host
-    build of the kind's per-chain body (numpy in, numpy out)."""
+    """``run(thetaT, ev, aux=None, reversed=False) -> (ll, grad, gaux)``
+    through the host build of the kind's warp-per-chain body, its lanes in
+    order 0..31 (or 31..0 with ``reversed``); numpy in, numpy out."""
     lib = host_lib
     fns = {}
     for kind in evidence_cuda.KINDS:
-        fn = getattr(lib, f"gt_{kind}_chain_host_f64")
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-            ctypes.c_double, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 10
-        fn.restype = ctypes.c_int
-        fns[kind] = fn
+        for rev in (False, True):
+            fn = getattr(lib, f"gt_{kind}_chain_host_{'rev_' if rev else ''}f64")
+            fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+                ctypes.c_double, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 10
+            fn.restype = ctypes.c_int
+            fns[kind, rev] = fn
 
     def ptr(a):
         return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
 
-    def run(thetaT, ev, aux=None):
+    def run(thetaT, ev, aux=None, reversed=False):
         aux = {k: np.ascontiguousarray(v, np.float64) for k, v in (aux or {}).items()}
         thetaT = np.ascontiguousarray(thetaT, np.float64)
         C = thetaT.shape[1]
@@ -72,7 +76,7 @@ def body(host_lib):
         grad = np.empty_like(thetaT)
         gaux = {k: np.empty_like(v) for k, v in aux.items()}
         arrs = [ev.X.numpy(), ev.nid.numpy(), ev.y.numpy(), ev.err2.numpy()]
-        rc = fns[ev.kind](
+        rc = fns[ev.kind, reversed](
             ev.n, *(ptr(a) for a in arrs), ev.diag_factor, ptr(thetaT), C,
             *(ptr(aux.get(k)) for k in AUX), ptr(ll), ptr(grad),
             *(ptr(gaux.get(k)) for k in AUX),
@@ -215,6 +219,79 @@ def test_body_failure_contract_zeroes_aux(body, kind):
     assert ll[2] == -np.inf and (g[:, 2] == 0).all()
     assert all((v[:, 2] == 0).all() for v in ga.values())
     assert np.isfinite(ll[[0, 1, 3]]).all()
+
+
+# ---- sizes and lane order of the warp-per-chain body --------------------------
+
+
+def _sized_problem(rng, kind, n):
+    """n points on (0.05, 0.95), about a quarter of them slope rows (one at
+    a repeated x); a single point is a slope row, so every aux channel
+    applies. Returns the data and the largest aux set of the kind, with a
+    theta draw of 6 chains."""
+    if n == 1:
+        X, nid = np.array([0.5]), np.array([1])
+    else:
+        n_slope = max(1, n // 4)
+        X = np.sort(rng.uniform(0.05, 0.95, n - 1))
+        X = np.sort(np.concatenate([X, X[[0]]]))  # x repeated at the first point
+        nid = np.zeros(n, int)
+        nid[1] = 1
+        nid[rng.choice(np.arange(2, n), n_slope - 1, replace=False)] = 1
+    # a smooth curve and its slope, with noise at the error scale: white
+    # noise as y would leave alpha = K^-1 r so large that its cotangents
+    # cancel to the plain version's own rounding
+    y = np.where(nid == 1, 5 * np.cos(5 * X), np.sin(5 * X)) + 0.1 * rng.standard_normal(n)
+    ev = evidence_cuda.make_data(X, nid, y, np.full(n, 0.01), 1e2, "cpu", kind)
+    C = 6
+    if kind == "gibbs_tanh":
+        names = ("mu", "nd")
+        thetaT = np.stack([rng.uniform(0.5, 1.5, C), rng.uniform(0.3, 1.2, C),
+                           rng.uniform(0.05, 0.4, C), rng.uniform(0.03, 0.2, C),
+                           rng.uniform(0.3, 0.7, C)])
+    else:
+        names = AUX
+        # length scales up to half the span: at 48 points a longer one
+        # leaves K so near singular that the plain version's own rounding
+        # exceeds 1e-10
+        thetaT = np.stack([rng.uniform(0.5, 1.5, C), rng.uniform(0.1, 0.5, C)])
+    return thetaT, ev, _aux_channels(rng, ev, C, names)
+
+
+@pytest.mark.parametrize("kind", list(evidence_cuda.KINDS))
+@pytest.mark.parametrize("n", [1, 27, 32, 33, 35, 48])
+def test_body_matches_plain_sizes(body, kind, n):
+    """One point, the configs' 27, 32 and 35, 33 (from n = 32 on a lane
+    owns two rows of each Cholesky step) and N_MAX = 48, with every aux
+    channel the kind takes, at 1e-10."""
+    rng = np.random.default_rng([n, len(kind)])
+    _check(body, *_sized_problem(rng, kind, n))
+
+
+@pytest.mark.parametrize("kind", list(evidence_cuda.KINDS))
+@pytest.mark.parametrize("where", ["config4", "n48"])
+def test_body_lane_order_is_bitwise_invariant(body, kind, where):
+    """Lanes run 0..31 and 31..0 give the same bits in ll, the gradient and
+    every cotangent: no lane reads, within a phase, what another lane
+    writes in it."""
+    rng = np.random.default_rng(21)
+    if where == "config4":
+        prob = configs.config4_gibbs_smc(device="cpu")
+        e = prob.model._evidence_data(prob.data)
+        ev = evidence_cuda.make_data(e.X, e.nid, e.y, e.err2, e.diag_factor, "cpu", kind)
+        thetaT = _draws(rng, 16)
+        if kind != "gibbs_tanh":
+            thetaT = thetaT[[0, 1]]
+        aux = None
+    else:
+        thetaT, ev, aux = _sized_problem(rng, kind, 48)
+    fwd = body(thetaT, ev, aux)
+    rev = body(thetaT, ev, aux, reversed=True)
+    assert np.isfinite(fwd[0]).all()
+    np.testing.assert_array_equal(fwd[0], rev[0])
+    np.testing.assert_array_equal(fwd[1], rev[1])
+    for k in fwd[2]:
+        np.testing.assert_array_equal(fwd[2][k], rev[2][k], err_msg=k)
 
 
 # ---- the covariance kernel's per-point and per-entry functions --------------
