@@ -340,17 +340,18 @@ def determinism(tag, model, data, thetas64):
 
 
 def kernel_times(tag, model, data, thetas, card, plain=True):
-    """The kernel's device time per launch (`graph_ms`) and its time per
-    call through the wrapper (`cuda_ms`, host work included), the plain
-    version's per call, the kernel's bound, and the time of
-    torch.linalg.cholesky_ex on a (C, N, N) batch of the same covariances.
-    Returns (ms, plain_ms or None, bound_ms, bound_by), ms the device time."""
+    """The kernel's time per call through the wrapper (`cuda_ms`, host work
+    included, as the kernels line's `ms` of every row) and its device time
+    per launch (`graph_ms`), the plain version's per call, the kernel's
+    bound, and the time of torch.linalg.cholesky_ex on a (C, N, N) batch
+    of the same covariances. Returns (ms, device_ms, plain_ms or None,
+    bound_ms, bound_by)."""
     import torch
 
     from gptools_tpu_torch.ops import evidence_cuda as ec
 
     thT, ev, aux = kernel_inputs(model, data, thetas)
-    t_k = graph_ms(lambda: ec.loglik_vag_cuda(thT, ev, aux))
+    t_dev = graph_ms(lambda: ec.loglik_vag_cuda(thT, ev, aux))
     t_call = cuda_ms(lambda: ec.loglik_vag_cuda(thT, ev, aux))
     t_p = cuda_ms(lambda: ec.loglik_vag_plain(thT, ev, aux)) if plain else None
     b_ms, b_by = bound(ev, thT, aux)
@@ -361,12 +362,13 @@ def kernel_times(tag, model, data, thetas, card, plain=True):
     t_chol = cuda_ms(lambda: torch.linalg.cholesky_ex(K))
     plain_txt = "not timed" if t_p is None else f"{t_p:.4f} ms"
     print(f"phase3 time {tag} C={thT.shape[1]} N={ev.n} aux={sorted(aux)} {thT.dtype}: "
-          f"kernel {t_k:.4f} ms per launch (CUDA graph of 20), {t_call:.4f} ms per call; "
-          f"plain {plain_txt} per call; bound {b_ms * 1e3:.3f} us ({b_by}); kernel at "
-          f"{100 * b_ms / t_k:.2f}% of the bound; for scale, torch.linalg.cholesky_ex "
+          f"kernel {t_call:.4f} ms per call, {t_dev:.4f} ms per launch on the device "
+          f"(CUDA graph of 20); plain {plain_txt} per call; bound {b_ms * 1e3:.3f} us "
+          f"({b_by}); kernel at {100 * b_ms / t_call:.2f}% of the bound per call, "
+          f"{100 * b_ms / t_dev:.2f}% per launch; for scale, torch.linalg.cholesky_ex "
           f"on the (C, N, N) covariances {t_chol:.4f} ms per call (medians, CUDA "
           f"events; {card})")
-    return t_k, t_p, b_ms, b_by
+    return t_call, t_dev, t_p, b_ms, b_by
 
 
 def variant_problems(dev):
@@ -530,8 +532,8 @@ def cov_parity(kind, X, nid, thetas, card, time_plain_reps=30):
     CUDA-event medians and the bound. The plain version runs in theta
     chunks of 32 for the comparison and whole for its time (at (256, 1024)
     in float64 its intermediates take some tens of GB; it fits the 80 GB
-    card). Returns {dtype: (max_abs_err, ms, plain_ms, bound_ms,
-    bound_by)}."""
+    card). Returns {dtype: (max_abs_err, ms, device_ms or None, plain_ms,
+    bound_ms, bound_by)}."""
     import torch
 
     from gptools_tpu_torch.ops import cov_cuda
@@ -566,7 +568,7 @@ def cov_parity(kind, X, nid, thetas, card, time_plain_reps=30):
               f"launch, profiler), plain {t_p:.4f} ms, bound "
               f"{b_ms * 1e3:.3f} us ({b_by}); kernel call at {100 * b_ms / t_k:.2f}% of "
               f"the bound (median of 30, CUDA events; {card})")
-        out[dtype] = (err, t_k, t_p, b_ms, b_by)
+        out[dtype] = (err, t_k, None if dev_us is None else 1e-3 * dev_us, t_p, b_ms, b_by)
         torch.cuda.empty_cache()
     return out
 
@@ -683,12 +685,24 @@ def ptxas_report(log):
     return out
 
 
+def evidence_smem(n, item):
+    """Bytes of dynamic shared memory of one evidence block (4 chains) at n
+    points and `item` bytes an element, as `smem_bytes` in
+    csrc/evidence_kernel.cu sizes its launch (`const_bytes`, and
+    `chain_elems` of csrc/evidence_chain.cuh, float2/double2 vectors)."""
+    def vec(k):
+        return (k + 1) // 2 * 2
+
+    nv = vec(n)
+    ld = (nv // 2 | 1) * 2
+    elems = 2 * n * ld + 12 * nv + vec(5 * 32 + 2 * 5 + 1)  # P_MAX = 5, LANES = 32
+    return (n * (3 * 8 + 4) + n * (n + 1) + 15) // 16 * 16 + 4 * elems * item
+
+
 def build_phase():
     """Phase 2: build both kernels; print the compiler's report and, per
     evidence instantiation, its registers, stack frame and spills (none
     allowed), and the dynamic shared memory of a block at the configs' N."""
-    import torch
-
     from gptools_tpu_torch.ops import evidence_cuda
 
     so = evidence_cuda.build()
@@ -706,8 +720,8 @@ def build_phase():
     if not info.get("cached") and len(report) != 2 * len(evidence_cuda.KINDS):
         fail(f"ptxas report lists {sorted(report)}, not every evidence instantiation")
     for name, (regs, frame, st, ld, smem) in sorted(report.items()):
-        dt = torch.float64 if "double" in name else torch.float32
-        dyn = {n: evidence_cuda.smem_bytes(n, dt) for n in (27, 32, 35, evidence_cuda.N_MAX)}
+        item = 8 if "double" in name else 4
+        dyn = {n: evidence_smem(n, item) for n in (27, 32, 35, evidence_cuda.N_MAX)}
         print(f"phase2 {name}: {regs} registers, {frame} bytes stack frame, {st} bytes "
               f"spill stores, {ld} bytes spill loads, {smem} bytes static smem; dynamic "
               f"smem per block of 4 chains (bytes) at N = 27/32/35/48: "
@@ -738,10 +752,11 @@ def kernel_phase(dev, card):
         determinism(tag, m, d, posterior_draws(config, C, torch.float64, dev, seed=5))
         row = {"max_abs_err": max(errs)}
         for dtype in (torch.float32, torch.float64):
-            t_k, t_p, b_ms, b_by = kernel_times(
+            t_k, t_dev, t_p, b_ms, b_by = kernel_times(
                 tag, m, d, posterior_draws(config, C, dtype, dev, seed=3), card)
             if dtype == torch.float32:
-                row.update(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+                row.update(ms=t_k, device_ms=t_dev, plain_ms=t_p, bound_ms=b_ms,
+                           bound_by=b_by)
             kernel_times(tag, m, d, posterior_draws(config, SMC_PARTICLES, dtype, dev, seed=4),
                          card, plain=False)
         table[k] = row
@@ -801,8 +816,9 @@ def main():
                              posterior_draws(config, B, torch.float64, dev, seed=B), card)
             errs.append(res[torch.float64][0])
             if B == SERVE_MAX_SAMPLES:
-                err, t_k, t_p, b_ms, b_by = res[torch.float64]
-                cov_table[k] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+                err, t_k, t_dev, t_p, b_ms, b_by = res[torch.float64]
+                cov_table[k] = dict(ms=t_k, device_ms=t_dev, plain_ms=t_p, bound_ms=b_ms,
+                                    bound_by=b_by)
         big = configs.ALL_CONFIGS[config](n_points=1022, dtype=torch.float64, device=dev)
         res = cov_parity(k, big.data.Xf.reshape(-1), big.data.nid,
                          posterior_draws(config, 256, torch.float64, dev, seed=256), card,
@@ -842,7 +858,8 @@ def main():
         "replaces": REPLACES,
         "launches": row["launches"],
         "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"],
+        "ms": row["ms"],  # per call through the wrapper, as in every earlier run
+        "device_ms": row["device_ms"],  # per launch, from a CUDA graph of 20
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
@@ -855,6 +872,7 @@ def main():
         "launches": row["launches"],
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],  # float64 at (512, N), the serving path's dtype and B
+        "device_ms": row["device_ms"],  # per launch, torch.profiler
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],

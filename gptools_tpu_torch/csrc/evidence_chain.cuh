@@ -99,13 +99,28 @@ constexpr int LANES = 32;
 // ---- teams ------------------------------------------------------------------
 
 #ifdef __CUDACC__
+#ifdef GT_PHASE_CLOCK
+// Profiling build only: the SM clock of block 0's first thread at the start
+// of the chain body (slot 0) and after each phase (slots 1, 2, ...).
+constexpr int PHASE_MARKS = 256;
+static __device__ long long phase_clk[PHASE_MARKS];
+#endif
+
 // The lanes of one warp; every lane of the warp calls every phase.
 struct WarpTeam {
   int lane;
+#ifdef GT_PHASE_CLOCK
+  mutable int mark = 0;
+#endif
   template <class F>
   __device__ __forceinline__ void run(F&& f) const {
     f(lane);
     __syncwarp();
+#ifdef GT_PHASE_CLOCK
+    if (blockIdx.x == 0 && threadIdx.x == 0 && mark + 1 < PHASE_MARKS)
+      phase_clk[1 + mark] = clock64();
+    ++mark;
+#endif
   }
   // sum of part[0..31]: a butterfly, lane l adding lane l ^ off's value at
   // each level; addition commutes, so every lane ends with the same bits

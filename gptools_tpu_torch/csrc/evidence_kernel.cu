@@ -15,10 +15,16 @@
 // null. ll (C,), grad (P, C) and the cotangents are written by the kernel
 // and allocated by the caller. Plain C interface, bound from Python by
 // ctypes; each entry point returns the cudaError of raising the kernel's
-// shared-memory limit (first call only) or of the launch.
+// shared-memory limit (first launch on a device only) or of the launch.
+//
+// Built with -DGT_PHASE_CLOCK (scripts/profile_torch_leapfrog.py --phases),
+// block 0's first thread also writes the SM clock at the start of the chain
+// body and after every phase (gt::phase_clk), read back by
+// gt_phase_clocks.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "evidence_chain.cuh"
@@ -27,6 +33,7 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may use
+constexpr int kMaxDevices = 64;
 
 // bytes of the block's constants (X, y, err2, nid and the pair table),
 // rounded up to 16
@@ -107,6 +114,9 @@ evidence_kernel(int n, const double* __restrict__ X, const int* __restrict__ nid
   __syncthreads();
 
   // ---- one warp per chain -------------------------------------------------
+#ifdef GT_PHASE_CLOCK
+  if (blockIdx.x == 0 && tid == 0) gt::phase_clk[0] = clock64();
+#endif
   const int warp = tid / gt::LANES;
   if (c0 + warp < C) {
     gt::evidence_chain<T, K>(gt::WarpTeam{tid % gt::LANES}, n, sX, snid, sy, se, df, tab,
@@ -140,6 +150,23 @@ size_t smem_bytes(int n) {
   return const_bytes(n) + size_t(kWarps) * gt::chain_elems(n) * sizeof(T);
 }
 
+// Allow the kernel dynamic shared memory above 48 KB on the current device:
+// the limit is an attribute of each device, so it is raised once per device;
+// a refusal is returned and tried again at the next launch.
+template <typename T, int K>
+int allow_smem() {
+  static std::atomic<bool> raised[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return int(e);
+  const bool cached = dev < kMaxDevices;
+  if (cached && raised[dev].load(std::memory_order_relaxed)) return 0;
+  e = cudaFuncSetAttribute(evidence_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxSmem);
+  if (e == cudaSuccess && cached) raised[dev].store(true, std::memory_order_relaxed);
+  return int(e);
+}
+
 template <typename T, int K>
 int launch(int n, const void* X, const void* nid, const void* y,
            const void* err2, double df, const void* thetaT, int C,
@@ -147,9 +174,7 @@ int launch(int n, const void* X, const void* nid, const void* y,
            void* ll, void* grad, void* gmu, void* gnd, void* gw, void* gwp,
            void* stream) {
   if (n < 1 || n > gt::N_MAX || C < 1) return int(cudaErrorInvalidValue);
-  // once per instantiation: allow dynamic shared memory above 48 KB
-  static const int attr = int(cudaFuncSetAttribute(
-      evidence_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem));
+  const int attr = allow_smem<T, K>();
   if (attr != 0) return attr;
   const int blocks = (C + kWarps - 1) / kWarps;
   evidence_kernel<T, K><<<blocks, kWarps * gt::LANES, smem_bytes<T>(n), (cudaStream_t)stream>>>(
@@ -179,10 +204,11 @@ GT_EXPORT(gt_se_evidence_f64, double, gt::SE)
 GT_EXPORT(gt_matern52_evidence_f32, float, gt::MATERN52)
 GT_EXPORT(gt_matern52_evidence_f64, double, gt::MATERN52)
 
-// The launch's dynamic shared memory in bytes at n points (for reports;
-// the entry points size their launches alike).
-#define GT_SMEM_EXPORT(NAME, T) \
-  extern "C" int NAME(int n) { return int(smem_bytes<T>(n)); }
-
-GT_SMEM_EXPORT(gt_evidence_smem_f32, float)
-GT_SMEM_EXPORT(gt_evidence_smem_f64, double)
+#ifdef GT_PHASE_CLOCK
+// Copy the phase clocks out (reset = 0) or zero them (reset = 1).
+extern "C" int gt_phase_clocks(long long* out, int reset) {
+  static long long zero[gt::PHASE_MARKS];
+  if (reset) return int(cudaMemcpyToSymbol(gt::phase_clk, zero, sizeof zero));
+  return int(cudaMemcpyFromSymbol(out, gt::phase_clk, sizeof zero));
+}
+#endif

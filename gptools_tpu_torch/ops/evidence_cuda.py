@@ -27,9 +27,9 @@ Routes, chosen by the device of ``thetaT`` and nothing else:
   pair cotangents in one n x ld square; Z^T = L^-T and then the second
   operand's cotangents in another) and per-point vectors live in the
   block's dynamic shared memory, which the C entry point sizes from n and
-  the dtype (`smem_bytes`: ~33 KB a block at config 4's n = 27 in float32,
-  ~181 KB at n = 48 in float64, above 48 KB by raising the kernel's limit
-  once). The 32 lanes split every phase of the algorithm (pairs, rows,
+  the dtype (~33 KB a block at config 4's n = 27 in float32, ~181 KB at
+  n = 48 in float64; above 48 KB by raising the kernel's limit once per
+  device). The 32 lanes split every phase of the algorithm (pairs, rows,
   points; the Cholesky two columns a phase, with the solve and L^-1 as its
   extra rows) and sum across lanes in a fixed order, with no atomics, so
   a call is deterministic; see ``csrc/evidence_chain.cuh``. It is
@@ -74,7 +74,6 @@ __all__ = [
     "build",
     "library",
     "bind",
-    "smem_bytes",
     "supported",
     "make_data",
     "loglik_vag_plain",
@@ -222,9 +221,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                 + [ctypes.c_void_p]            # stream
             )
             fn.restype = ctypes.c_int
-        fn = getattr(lib, f"gt_evidence_smem_{dt}")
-        fn.argtypes = [ctypes.c_int]  # n
-        fn.restype = ctypes.c_int
         for kind in ("se", "gibbs_tanh"):
             fn = getattr(lib, f"gt_{kind}_cov_{dt}")
             fn.argtypes = (
@@ -233,12 +229,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             )
             fn.restype = ctypes.c_int
     return lib
-
-
-def smem_bytes(n: int, dtype: torch.dtype) -> int:
-    """Bytes of dynamic shared memory of one evidence block (4 chains) at n
-    points, as the C entry point sizes its launch (builds the library)."""
-    return getattr(library(), f"gt_evidence_smem_{'f64' if dtype == torch.float64 else 'f32'}")(n)
 
 
 def _check_theta(thetaT: torch.Tensor, ev: EvidenceData):

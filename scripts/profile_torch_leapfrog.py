@@ -14,9 +14,10 @@ For each config, in float32 at the chain count `chip_smoke.py` runs it:
   synchronizations per step.
 
 With ``--phases``, also where one evidence-kernel call spends its time:
-a copy of the kernels whose warp team reads clock64() after every phase of
-the chain body (block 0's first warp, so chain 0), built beside the real
-one, run at the config's chains and at 1024 (the SMC particles); SM clock
+the kernels built from the same sources with ``-DGT_PHASE_CLOCK``, so
+that the warp team reads clock64() after every phase of the chain body
+(block 0's first warp, so chain 0), into a library beside the real one, run
+at the config's chains and at 1024 (the SMC particles); SM clock
 cycles per phase (the Cholesky summed over its steps).
 
     python scripts/profile_torch_leapfrog.py                # configs 4 2 3
@@ -145,48 +146,16 @@ def profile_config(config, steps, prof_steps, card, dev):
     }
 
 
-# (text in csrc, its replacement): the clock64() marks of the phase build
-PHASE_PATCHES = (
-    ("evidence_chain.cuh", "// The lanes of one warp",
-     "__device__ long long gt_phase_clk[256];\n// The lanes of one warp"),
-    ("evidence_chain.cuh", "struct WarpTeam {\n  int lane;",
-     "struct WarpTeam {\n  int lane;\n  mutable int mark = 0;"),
-    ("evidence_chain.cuh", "    f(lane);\n    __syncwarp();\n  }",
-     "    f(lane);\n    __syncwarp();\n    if (blockIdx.x == 0 && threadIdx.x == 0) "
-     "gt_phase_clk[1 + mark] = clock64();\n    ++mark;\n  }"),
-    ("evidence_kernel.cu", "  // ---- one warp per chain",
-     "  if (blockIdx.x == 0 && threadIdx.x == 0) gt::gt_phase_clk[0] = clock64();\n"
-     "  // ---- one warp per chain"),
-)
-PHASE_READER = """
-extern "C" int gt_phase_clocks(long long* out, int reset) {
-  static long long zero[256];
-  if (reset) return int(cudaMemcpyToSymbol(gt::gt_phase_clk, zero, sizeof zero));
-  return int(cudaMemcpyFromSymbol(out, gt::gt_phase_clk, sizeof zero));
-}
-"""
-
-
 def phase_library():
-    """Build and bind the clock64()-instrumented copy of the kernels."""
+    """Build and bind the kernels with their phase clocks on."""
     import ctypes
-    import shutil
 
     from gptools_tpu_torch.ops import evidence_cuda as ec
 
-    d = ec._BUILD_DIR / "phases"
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(ec._CSRC, d)
-    for name, old, new in PHASE_PATCHES:
-        text = (d / name).read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"phase marks: {old!r} not found once in {name}")
-        (d / name).write_text(text.replace(old, new))
-    with open(d / "evidence_kernel.cu", "a") as f:
-        f.write(PHASE_READER)
-    so = d / "libphases.so"
-    subprocess.run([ec._nvcc(), *ec._NVCC_FLAGS, "-o", str(so),
-                    *(str(d / u) for u in ec._UNITS)], check=True, capture_output=True)
+    ec._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = ec._BUILD_DIR / "libgt_phase_clock.so"
+    subprocess.run([ec._nvcc(), *ec._NVCC_FLAGS, "-DGT_PHASE_CLOCK", "-o", str(so),
+                    *(str(ec._CSRC / u) for u in ec._UNITS)], check=True, capture_output=True)
     lib = ec.bind(ctypes.CDLL(str(so)))
     lib.gt_phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
     return lib
