@@ -10,9 +10,10 @@ Phases (any failure raises and exits non-zero; no phase falls back):
 2. build: compiles the evidence kernel and the covariance kernel, every
    kind and dtype, from ``gptools_tpu_torch/csrc`` with one ``nvcc`` call
    for ``sm_90a`` (into ``gptools_tpu_torch/_build``).
-   Then, per evidence instantiation, the compiler's registers, stack
-   frame and spill bytes (``-Xptxas -v``; a spill fails the run), and the
-   dynamic shared memory of a block at the configs' N.
+   Then, per evidence and covariance instantiation, the compiler's
+   registers, stack frame and spill bytes (``-Xptxas -v``; a spill fails
+   the run), and for the evidence kernel the dynamic shared memory of a
+   block at the configs' N.
 3. kernel parity, kernel vs plain PyTorch version on the card, on the
    inputs the main paths give it (theta rows and aux channels from
    `GPModel._evidence_inputs`): config 4 (kind gibbs_tanh, N = 27) at
@@ -32,11 +33,16 @@ Phases (any failure raises and exits non-zero; no phase falls back):
 3b. covariance-kernel parity, kernel vs plain PyTorch version (the fused
    single-theta builders) on the card: config 4 (gibbs_tanh, N = 27) and
    config 2 (se, N = 32) at theta batch B = 1 and 512 (the MCMC
-   predictor's ``max_samples``), and both kinds at (B, N) = (256, 1024)
-   (the configs at 1022 points); thetas from the golden posteriors.
-   float64: max |dK| / max |K| <= 1e-12, float32 <= 1e-5; value-value
-   entries exactly symmetric; CUDA-event times of kernel and plain version
-   and the kernel's bound.
+   predictor's ``max_samples``; the kernel's small layout), and both kinds
+   at (B, N) = (16, 1001) (the configs at 999 points: tiles with a ragged
+   edge and rows off 16-byte boundaries) and (256, 1024) (at 1022 points);
+   thetas from the golden posteriors. Gates: float64 max |dK| / max |K|
+   <= 1e-12, float32 <= 1e-5; the whole matrix exactly symmetric (K ==
+   K^T, every block). Per shape the layout the launch took, CUDA-event
+   times per call of kernel and plain version, the kernel's device time
+   per launch (torch.profiler; and a CUDA graph of 20 launches), the
+   wrapper's host time per call (CPU clock around 200 calls) and the
+   kernel's bound.
 4. main paths in float32, each with the launch counts set to 0 just before
    and read just after: config 4 through ``smc_then_chees`` at 12288 chains
    (75 warmup + 300 samples), configs 2 and 3 at 4096 chains (100 + 500);
@@ -526,20 +532,35 @@ def device_us(fn, name, reps=20):
     return t if t > 0 else None
 
 
+def wrapper_host_us(fn, calls=200):
+    """Host microseconds per call of ``fn`` (the CPU clock around ``calls``
+    calls, after a synchronize; the device may still be running)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return 1e6 * t
+
+
 def cov_parity(kind, X, nid, thetas, card, time_plain_reps=30):
     """Covariance kernel vs its plain version on one (B, N) in float64 and
-    float32: the error bound, exact symmetry of the value-value block,
-    CUDA-event medians and the bound. The plain version runs in theta
-    chunks of 32 for the comparison and whole for its time (at (256, 1024)
-    in float64 its intermediates take some tens of GB; it fits the 80 GB
-    card). Returns {dtype: (max_abs_err, ms, device_ms or None, plain_ms,
-    bound_ms, bound_by)}."""
+    float32: the error bound, exact symmetry of the whole matrix, the
+    layout the launch took, CUDA-event medians per call, the device time
+    per launch (torch.profiler, and a CUDA graph of 20 launches), the
+    wrapper's host time per call, and the bound. The plain version runs in
+    theta chunks of 32 for the comparison and whole for its time (at
+    (256, 1024) in float64 its intermediates take some tens of GB; it fits
+    the 80 GB card). Returns {dtype: (max_abs_err, ms, device_ms or None,
+    plain_ms, bound_ms, bound_by)}."""
     import torch
 
     from gptools_tpu_torch.ops import cov_cuda
 
     B, n = thetas.shape[0], X.shape[0]
-    vv = (nid[:, None] == 0) & (nid[None, :] == 0)
     out = {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         th = thetas.to(dtype)
@@ -551,23 +572,32 @@ def cov_parity(kind, X, nid, thetas, card, time_plain_reps=30):
             err = max(err, float((K[c:c + 32] - Kp).abs().max()))
             kmax = max(kmax, float(Kp.abs().max()))
             del Kp
-        sym = bool(((K == K.mT) | ~vv).all())
+        sym = bool((K == K.mT).all())
+        lay = cov_cuda.layout(n, B, dtype)
         tag = f"phase3b {kind} (B, N) = ({B}, {n}) {str(dtype).replace('torch.', '')}"
-        print(f"{tag}: max |dK| / max |K| = {err / kmax:.3e} (tol {tol:g}), "
-              f"value-value block exactly symmetric: {sym}")
+        print(f"{tag}: max |dK| / max |K| = {err / kmax:.3e} (tol {tol:g}), whole "
+              f"matrix exactly symmetric: {sym}; layout {lay['layout']}: "
+              f"{lay['thetas_per_block']} theta(s) a block, grid {lay['grid_x']} x "
+              f"{lay['grid_yz']}, {lay['threads']} threads, {lay['smem_bytes']} bytes "
+              f"of shared memory a block")
         if not err / kmax <= tol or not sym:
-            fail(f"{tag}: kernel/plain disagree or the value-value block is not symmetric")
+            fail(f"{tag}: kernel/plain disagree or K is not exactly symmetric")
         del K
         t_k = cuda_ms(lambda: cov_cuda.cov_cuda(kind, X, nid, th))
         t_p = cuda_ms(lambda: cov_cuda.cov_plain(kind, X, nid, th),
                       reps=time_plain_reps, warm=1)
         b_ms, b_by = cov_bound(kind, nid, B, th.element_size())
-        dev_us = device_us(lambda: cov_cuda.cov_cuda(kind, X, nid, th), "cov_kernel")
+        dev_us = device_us(lambda: cov_cuda.cov_cuda(kind, X, nid, th), "cov_")
         dev_txt = "not measured" if dev_us is None else f"{dev_us:.3f} us"
+        t_graph = graph_ms(lambda: cov_cuda.cov_cuda(kind, X, nid, th))
+        host_us = wrapper_host_us(lambda: cov_cuda.cov_cuda(kind, X, nid, th))
         print(f"{tag}: kernel {t_k:.4f} ms per call (device time {dev_txt} per "
-              f"launch, profiler), plain {t_p:.4f} ms, bound "
-              f"{b_ms * 1e3:.3f} us ({b_by}); kernel call at {100 * b_ms / t_k:.2f}% of "
-              f"the bound (median of 30, CUDA events; {card})")
+              f"launch by the profiler, {1e3 * t_graph:.3f} us by a CUDA graph of 20; "
+              f"wrapper host time {host_us:.2f} us per call, 200 calls), plain "
+              f"{t_p:.4f} ms, bound {b_ms * 1e3:.3f} us ({b_by}); kernel call at "
+              f"{100 * b_ms / t_k:.2f}% of the bound"
+              + ("" if dev_us is None else f", launch at {100e3 * b_ms / dev_us:.2f}%")
+              + f" (median of 30, CUDA events; {card})")
         out[dtype] = (err, t_k, None if dev_us is None else 1e-3 * dev_us, t_p, b_ms, b_by)
         torch.cuda.empty_cache()
     return out
@@ -657,17 +687,19 @@ KIND_IDS = {"0": "gibbs_tanh", "1": "se", "2": "matern52"}
 
 
 def ptxas_report(log):
-    """{evidence instantiation: (registers, stack frame, spill stores, spill
-    loads, static smem bytes)} from the ``-Xptxas -v`` log."""
+    """{evidence or covariance instantiation: (registers, stack frame, spill
+    stores, spill loads, static smem bytes)} from the ``-Xptxas -v`` log."""
     import re
 
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"evidence_kernelI([fd])Li(\d)E", m.group(1))
-            name = (f"evidence_kernel<{'float' if k.group(1) == 'f' else 'double'}, "
-                    f"{KIND_IDS[k.group(2)]}>") if k else None
+            k = re.search(r"(evidence_kernel|cov_small_kernel|cov_band_kernel|cov_tile_kernel)"
+                          r"I([fd])Li(\d)E",
+                          m.group(1))
+            name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}, "
+                    f"{KIND_IDS[k.group(3)]}>") if k else None
             if name:
                 out[name] = [None] * 5
             continue
@@ -717,15 +749,18 @@ def build_phase():
                 or "smem" in line):
             print(f"phase2 ptxas: {line.strip()}")
     report = ptxas_report(log)
-    if not info.get("cached") and len(report) != 2 * len(evidence_cuda.KINDS):
-        fail(f"ptxas report lists {sorted(report)}, not every evidence instantiation")
+    # evidence: 3 kinds x 2 dtypes; covariance: 3 layouts x 2 kinds x 2 dtypes
+    if not info.get("cached") and len(report) != 2 * len(evidence_cuda.KINDS) + 12:
+        fail(f"ptxas report lists {sorted(report)}, not every kernel instantiation")
     for name, (regs, frame, st, ld, smem) in sorted(report.items()):
         item = 8 if "double" in name else 4
-        dyn = {n: evidence_smem(n, item) for n in (27, 32, 35, evidence_cuda.N_MAX)}
+        extra = ""
+        if name.startswith("evidence"):
+            dyn = {n: evidence_smem(n, item) for n in (27, 32, 35, evidence_cuda.N_MAX)}
+            extra = (f"; dynamic smem per block of 4 chains (bytes) at N = 27/32/35/48: "
+                     f"{[dyn[n] for n in sorted(dyn)]}")
         print(f"phase2 {name}: {regs} registers, {frame} bytes stack frame, {st} bytes "
-              f"spill stores, {ld} bytes spill loads, {smem} bytes static smem; dynamic "
-              f"smem per block of 4 chains (bytes) at N = 27/32/35/48: "
-              f"{[dyn[n] for n in sorted(dyn)]}")
+              f"spill stores, {ld} bytes spill loads, {smem} bytes static smem{extra}")
         if st or ld:
             fail(f"{name} spills registers")
 
@@ -819,14 +854,19 @@ def main():
                 err, t_k, t_dev, t_p, b_ms, b_by = res[torch.float64]
                 cov_table[k] = dict(ms=t_k, device_ms=t_dev, plain_ms=t_p, bound_ms=b_ms,
                                     bound_by=b_by)
-        big = configs.ALL_CONFIGS[config](n_points=1022, dtype=torch.float64, device=dev)
-        res = cov_parity(k, big.data.Xf.reshape(-1), big.data.nid,
-                         posterior_draws(config, 256, torch.float64, dev, seed=256), card,
-                         time_plain_reps=5)
-        errs.append(res[torch.float64][0])
+        # (16, 1001): tiles with a ragged edge (1001 = 15 * 64 + 41) and odd
+        # rows (every other float64 row starts off a 16-byte boundary);
+        # (256, 1024): the large shape of every earlier run
+        for n_points, B, plain_reps in ((999, 16, 30), (1022, 256, 5)):
+            big = configs.ALL_CONFIGS[config](n_points=n_points, dtype=torch.float64,
+                                              device=dev)
+            res = cov_parity(k, big.data.Xf.reshape(-1), big.data.nid,
+                             posterior_draws(config, B, torch.float64, dev, seed=B), card,
+                             time_plain_reps=plain_reps)
+            errs.append(res[torch.float64][0])
+            del big, res
+            torch.cuda.empty_cache()
         cov_table[k]["max_abs_err"] = max(errs)  # float64, as the row's times
-        del big, res
-        torch.cuda.empty_cache()
 
     # ---- phase 4: main paths (float32, as the reference's bench) ---------
     for config in (4, 2, 3):

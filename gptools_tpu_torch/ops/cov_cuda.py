@@ -9,23 +9,36 @@ exact zero).
 
 Routes, chosen by the device of theta and nothing else:
 
-- CUDA: the kernel ``csrc/cov_kernel.cu`` (one thread per entry, the theta
-  batch on the grid; one launch for all B, where the reference ``vmap``s a
-  single-theta Pallas call). It is built with the evidence kernel into one
-  library (`evidence_cuda.build`); a build or launch failure raises. X is
-  passed in float64 and rounded to theta's dtype in the kernel.
+- CUDA: the kernel ``csrc/cov_kernel.cu`` (one launch for all B, where the
+  reference ``vmap``s a single-theta Pallas call; each unordered pair
+  evaluated once and written at (i, j) and (j, i), so K is exactly
+  symmetric; a block per theta group for N <= 64, 64 x 64 tiles of the
+  lower triangle above, see ``csrc/cov_entry.cuh``). It is built with the
+  evidence kernel into one library (`evidence_cuda.build`); a build or
+  launch failure raises. X is passed in float64 and rounded to theta's
+  dtype in the kernel.
 - CPU: the plain version, the single-theta fused builders
   (`fused.se_cov_fused`, `fused.gibbs_tanh_cov_fused`) on X in theta's
   dtype.
 
+The per-dataset work is done once: `points` turns (X, nid) into float64
+points and int32 order ids, contiguous on their device, and keeps them
+while the same X and nid tensors come back unchanged (as every call of a
+model on one dataset passes them). A call then checks theta, allocates the
+output and launches; the four entry points are bound once.
+
 `se_cov_vjp` / `gibbs_tanh_cov_vjp` are differentiable in theta: the
 forward takes the route above, the backward runs autograd through the
 plain builder (as the reference's ``_make_vjp``); X and nid get no
-gradient. `LAUNCHES` counts kernel launches and `PLAIN_CALLS` forward calls
-of the plain version, per kind (the backward's builds are not counted).
+gradient. Without a theta that requires grad they are the plain forward
+call. `LAUNCHES` counts kernel launches and `PLAIN_CALLS` forward calls of
+the plain version, per kind (the backward's builds are not counted).
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -35,11 +48,15 @@ __all__ = [
     "KINDS",
     "LAUNCHES",
     "PLAIN_CALLS",
+    "CovPoints",
     "reset_counts",
+    "points",
+    "layout",
     "cov_plain",
     "cov_cuda",
     "se_cov",
     "gibbs_tanh_cov",
+    "cov_vjp",
     "se_cov_vjp",
     "gibbs_tanh_cov_vjp",
     "cov_supported",
@@ -52,6 +69,10 @@ _PLAIN = {"se": fused.se_cov_fused, "gibbs_tanh": fused.gibbs_tanh_cov_fused}
 LAUNCHES = {k: 0 for k in KINDS}
 PLAIN_CALLS = {k: 0 for k in KINDS}
 
+_FNS: dict = {}  # (kind, dtype) -> the bound entry point
+_POINTS: dict = {}  # (id(X), id(nid), orders) -> (X, nid, versions, CovPoints)
+_POINTS_MAX = 8
+
 
 def reset_counts() -> None:
     """Set every launch and plain-call count to 0."""
@@ -60,98 +81,181 @@ def reset_counts() -> None:
         PLAIN_CALLS[k] = 0
 
 
-def _check(kind: str, X: torch.Tensor, nid: torch.Tensor, theta: torch.Tensor):
-    if theta.dtype not in (torch.float32, torch.float64):
+class CovPoints(NamedTuple):
+    """One point set as the kernel takes it: X (N,) float64 and the order
+    ids nid (N,) int32, contiguous, on one device, with their addresses."""
+
+    X: torch.Tensor
+    nid: torch.Tensor
+    device: torch.device
+    n: int
+    X_ptr: int
+    nid_ptr: int
+
+
+def points(X: torch.Tensor, nid: torch.Tensor, multi_indices=None) -> CovPoints:
+    """The kernel's points of X (N,) and nid (N,), or, with the dataset's
+    ``multi_indices``, of its X (N, 1) and multi-index rows nid (their
+    order ids). Kept for the same X and nid tensors while neither changes
+    (their identity and version counters), up to 8 point sets."""
+    orders = None if multi_indices is None else tuple(tuple(m) for m in multi_indices)
+    key = (id(X), id(nid), orders)
+    hit = _POINTS.get(key)
+    if (hit is not None and hit[0] is X and hit[1] is nid
+            and hit[2] == (X._version, nid._version)):
+        return hit[3]
+    Xf, ids = X, nid
+    if orders is not None:
+        Xf, ids = X.reshape(-1), fused._order_ids(nid, orders)
+    if Xf.ndim != 1 or ids.shape != Xf.shape:
+        raise ValueError(f"X and nid must be (N,), got {tuple(Xf.shape)} and "
+                         f"{tuple(ids.shape)}")
+    if Xf.device != ids.device:
+        raise ValueError(f"X on {Xf.device}, nid on {ids.device}")
+    X64, ids32 = Xf.to(torch.float64).contiguous(), ids.to(torch.int32).contiguous()
+    pts = CovPoints(X64, ids32, X64.device, X64.shape[0], X64.data_ptr(), ids32.data_ptr())
+    if len(_POINTS) >= _POINTS_MAX:
+        del _POINTS[next(iter(_POINTS))]
+    _POINTS[key] = (X, nid, (X._version, nid._version), pts)
+    return pts
+
+
+_DTYPES = (torch.float32, torch.float64)
+
+
+def _check(kind: str, pts: CovPoints, theta: torch.Tensor) -> int:
+    """Raise on a theta the kind does not take; return its batch B (1 for
+    a single theta)."""
+    if theta.dtype not in _DTYPES:
         raise TypeError(f"theta must be float32 or float64, got {theta.dtype}")
-    P = KINDS[kind]
-    if theta.ndim not in (1, 2) or theta.shape[-1] != P:
+    P, shape = KINDS[kind], theta.shape
+    if not (len(shape) in (1, 2) and shape[-1] == P):
         raise ValueError(f"theta must be ({P},) or (B, {P}) for kind {kind}, "
-                         f"got {tuple(theta.shape)}")
-    if X.ndim != 1 or nid.shape != X.shape:
-        raise ValueError(f"X and nid must be (N,), got {tuple(X.shape)} and "
-                         f"{tuple(nid.shape)}")
-    if X.device != theta.device or nid.device != theta.device:
-        raise ValueError(f"X on {X.device}, nid on {nid.device}, theta on {theta.device}")
+                         f"got {tuple(shape)}")
+    if theta.device != pts.device:
+        raise ValueError(f"X and nid on {pts.device}, theta on {theta.device}")
+    return shape[0] if len(shape) == 2 else 1
+
+
+def _plain(kind: str, pts: CovPoints, theta: torch.Tensor):
+    _check(kind, pts, theta)
+    PLAIN_CALLS[kind] += 1
+    return _PLAIN[kind](pts.X.to(theta.dtype), pts.nid, theta)
 
 
 def cov_plain(kind: str, X: torch.Tensor, nid: torch.Tensor, theta: torch.Tensor):
     """The plain PyTorch version on any device (differentiable)."""
-    _check(kind, X, nid, theta)
-    PLAIN_CALLS[kind] += 1
-    return _PLAIN[kind](X.to(theta.dtype), nid, theta)
+    return _plain(kind, points(X, nid), theta)
+
+
+def _bind(kind: str, dtype: torch.dtype):
+    fn = getattr(evidence_cuda.library(),
+                 f"gt_{kind}_cov_{'f64' if dtype == torch.float64 else 'f32'}")
+    _FNS[kind, dtype] = fn
+    return fn
+
+
+def _launch(kind: str, pts: CovPoints, theta: torch.Tensor):
+    B = _check(kind, pts, theta)
+    dev = pts.device
+    if dev.type != "cuda":
+        raise ValueError(f"theta must be a CUDA tensor, got {dev}")
+    th = theta if theta.is_contiguous() else theta.contiguous()
+    n = pts.n
+    out = th.new_empty((B, n, n) if theta.ndim == 2 else (n, n))
+    if B > 0 and n > 0:
+        fn = _FNS.get((kind, theta.dtype)) or _bind(kind, theta.dtype)
+        # the current stream's handle, as torch's own generated kernels take
+        # it (torch.cuda.current_stream builds a Stream object each call)
+        idx = dev.index
+        if idx == torch.cuda.current_device():
+            rc = fn(n, pts.X_ptr, pts.nid_ptr, th.data_ptr(), B, out.data_ptr(),
+                    torch._C._cuda_getCurrentRawStream(idx))
+        else:
+            with torch.cuda.device(idx):
+                rc = fn(n, pts.X_ptr, pts.nid_ptr, th.data_ptr(), B, out.data_ptr(),
+                        torch._C._cuda_getCurrentRawStream(idx))
+        if rc != 0:
+            raise RuntimeError(f"covariance kernel launch failed: cudaError {rc}")
+        LAUNCHES[kind] += 1
+    return out
 
 
 def cov_cuda(kind: str, X: torch.Tensor, nid: torch.Tensor, theta: torch.Tensor):
     """Launch the kernel: theta (P,) or (B, P) on a CUDA device ->
     (N, N) or (B, N, N) in theta's dtype."""
-    _check(kind, X, nid, theta)
-    if theta.device.type != "cuda":
-        raise ValueError(f"theta must be a CUDA tensor, got {theta.device}")
-    n = X.shape[0]
-    th = theta.reshape(-1, KINDS[kind]).contiguous()
-    B = th.shape[0]
-    out = torch.empty((B, n, n), dtype=theta.dtype, device=theta.device)
-    if B > 0 and n > 0:
-        X64 = X.to(torch.float64).contiguous()
-        ids = nid.to(torch.int32).contiguous()
-        dt = "f64" if theta.dtype == torch.float64 else "f32"
-        fn = getattr(evidence_cuda.library(), f"gt_{kind}_cov_{dt}")
-        with torch.cuda.device(theta.device):
-            stream = torch.cuda.current_stream(theta.device).cuda_stream
-            rc = fn(n, X64.data_ptr(), ids.data_ptr(), th.data_ptr(), B,
-                    out.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"covariance kernel launch failed: cudaError {rc}")
-        LAUNCHES[kind] += 1
-    return out if theta.ndim == 2 else out[0]
+    return _launch(kind, points(X, nid), theta)
 
 
-def _route(kind: str, X, nid, theta):
+def layout(n: int, B: int, dtype: torch.dtype) -> dict:
+    """The layout a launch at (N, B) in ``dtype`` takes, as the kernel
+    library reports it (``gt_cov_layout``; builds the library): "small"
+    (a block per theta group, the image), "bands" (a block per 4 rows of a
+    theta, direct stores) or "tiles"; thetas a block, grid, threads and
+    shared bytes a block."""
+    info = (ctypes.c_int * 6)()
+    rc = evidence_cuda.library().gt_cov_layout(n, B, 8 if dtype == torch.float64 else 4, info)
+    if rc != 0:
+        raise ValueError(f"no covariance layout for N = {n}, B = {B}: cudaError {rc}")
+    return dict(zip(("layout", "thetas_per_block", "grid_x", "grid_yz", "threads",
+                     "smem_bytes"), info), layout=("small", "tiles", "bands")[info[0]])
+
+
+def _route(kind: str, pts: CovPoints, theta: torch.Tensor):
     if theta.device.type == "cuda":
-        return cov_cuda(kind, X, nid, theta)
+        return _launch(kind, pts, theta)
     if theta.device.type == "cpu":
-        return cov_plain(kind, X, nid, theta)
+        return _plain(kind, pts, theta)
     raise ValueError(f"no covariance route for device {theta.device}")
 
 
 def se_cov(X: torch.Tensor, nid: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """SE covariance: X (N,), nid (N,), theta [sigma_f, l] (2,) or (B, 2)
     -> (N, N) or (B, N, N), by the route of theta's device."""
-    return _route("se", X, nid, theta)
+    return _route("se", points(X, nid), theta)
 
 
 def gibbs_tanh_cov(X: torch.Tensor, nid: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """Gibbs-tanh covariance: theta [sigma_f, l1, l2, lw, x0] (5,) or
     (B, 5) -> (N, N) or (B, N, N), by the route of theta's device."""
-    return _route("gibbs_tanh", X, nid, theta)
+    return _route("gibbs_tanh", points(X, nid), theta)
 
 
 class _CovVJP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, kind, X, nid, theta):
-        ctx.kind = kind
-        ctx.save_for_backward(X, nid, theta)
-        return _route(kind, X, nid, theta)
+    def forward(ctx, kind, pts, theta):
+        ctx.kind, ctx.pts = kind, pts
+        ctx.save_for_backward(theta)
+        return _route(kind, pts, theta)
 
     @staticmethod
     def backward(ctx, gK):
-        X, nid, theta = ctx.saved_tensors
+        (theta,) = ctx.saved_tensors
         with torch.enable_grad():
             th = theta.detach().requires_grad_(True)
-            K = _PLAIN[ctx.kind](X.to(th.dtype), nid, th)
+            K = _PLAIN[ctx.kind](ctx.pts.X.to(th.dtype), ctx.pts.nid, th)
             (g,) = torch.autograd.grad(K, th, gK.to(th.dtype))
-        return None, None, None, g
+        return None, None, g
+
+
+def cov_vjp(kind: str, pts: CovPoints, theta: torch.Tensor) -> torch.Tensor:
+    """The kind's covariance of `points` ``pts``, differentiable in theta
+    (backward: autograd of the plain builder); with no gradient to take,
+    the forward route alone."""
+    if theta.requires_grad and torch.is_grad_enabled():
+        return _CovVJP.apply(kind, pts, theta)
+    return _route(kind, pts, theta)
 
 
 def se_cov_vjp(X: torch.Tensor, nid: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """`se_cov`, differentiable in theta (backward: autograd of the plain
     builder)."""
-    return _CovVJP.apply("se", X, nid, theta)
+    return cov_vjp("se", points(X, nid), theta)
 
 
 def gibbs_tanh_cov_vjp(X: torch.Tensor, nid: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """`gibbs_tanh_cov`, differentiable in theta."""
-    return _CovVJP.apply("gibbs_tanh", X, nid, theta)
+    return cov_vjp("gibbs_tanh", points(X, nid), theta)
 
 
 def cov_supported(kernel, data) -> bool:
@@ -178,10 +282,9 @@ def cov_matrix_flagship(kernel, theta: torch.Tensor, data) -> torch.Tensor:
             "cov_matrix_flagship only implements the TanhWarp Gibbs kernel; "
             f"got GibbsKernel with warp {type(kernel.warp).__name__}"
         )
-    nid = fused._order_ids(data.nid, data.multi_indices)
-    X = data.Xf.reshape(-1)
+    pts = points(data.Xf, data.nid, data.multi_indices)
     if type(kernel) is SquaredExponentialKernel:
-        return se_cov(X, nid, theta)
+        return _route("se", pts, theta)
     if isinstance(kernel, GibbsKernel):
-        return gibbs_tanh_cov(X, nid, theta)
+        return _route("gibbs_tanh", pts, theta)
     raise ValueError(f"no covariance kernel for {type(kernel).__name__}")

@@ -199,7 +199,7 @@ def library() -> ctypes.CDLL:
     """The kernel library, built and loaded at the first call, with the
     argument types of every entry point: the evidence kernel's here, the
     covariance kernel's (`ops.cov_cuda`) ``gt_{kind}_cov_{dtype}(n, X, nid,
-    theta, B, out, stream)``."""
+    theta, B, out, stream)`` and ``gt_cov_layout(n, B, item, info)``."""
     global _LIB
     if _LIB is None:
         _LIB = bind(ctypes.CDLL(str(build())))
@@ -228,6 +228,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]  # B, out, stream
             )
             fn.restype = ctypes.c_int
+    lib.gt_cov_layout.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.gt_cov_layout.restype = ctypes.c_int  # n, B, item, info[6]
     return lib
 
 

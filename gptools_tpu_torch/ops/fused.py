@@ -409,11 +409,7 @@ def flagship_cov(kernel, theta, X, nid, multi_indices, backend: str = "fused"):
     backward; on a CPU tensor the kernel's plain version). The kernel
     exists for the SE and Gibbs-tanh kinds only; other kinds take the
     fused build, as in the reference."""
-    from gptools_tpu_torch.ops.kernels import (
-        GibbsKernel,
-        SquaredExponentialKernel,
-        TanhWarp,
-    )
+    from gptools_tpu_torch.ops.kernels import GibbsKernel, TanhWarp
 
     if isinstance(kernel, GibbsKernel) and type(kernel.warp) is not TanhWarp:
         raise ValueError(
@@ -425,16 +421,13 @@ def flagship_cov(kernel, theta, X, nid, multi_indices, backend: str = "fused"):
     if cls is None:
         raise ValueError(type(kernel).__name__)
     kind, _, input_warp = cls
-    ids = _order_ids(nid, multi_indices)
-    Xf = X.reshape(-1)
-    if backend == "pallas":
+    if backend == "pallas" and kind in ("se", "gibbs_tanh") and input_warp is None:
         from gptools_tpu_torch.ops import cov_cuda
 
-        if type(kernel) is SquaredExponentialKernel:
-            return cov_cuda.se_cov_vjp(Xf, ids, theta)
-        if isinstance(kernel, GibbsKernel):
-            return cov_cuda.gibbs_tanh_cov_vjp(Xf, ids, theta)
-    Xt = Xf.to(theta.dtype)
+        # the points and order ids are prepared once per dataset
+        return cov_cuda.cov_vjp(kind, cov_cuda.points(X, nid, multi_indices), theta)
+    ids = _order_ids(nid, multi_indices)
+    Xt = X.reshape(-1).to(theta.dtype)
     if input_warp is not None:
         return warped_cov_fused(kind, input_warp, Xt, ids, theta)
     builds = {

@@ -13,8 +13,9 @@ largest shared-memory case); the kernel is held at C = 1 and at C that
 fill no block of 4 warps, and three calls must give the same bits. The
 covariance kernel
 (`cov_cuda`) is held to its plain version at theta batches 1 and 512 on
-configs 4 (gibbs_tanh) and 2 (se), with its VJP and the pallas-backend
-serving predictor.
+configs 4 (gibbs_tanh) and 2 (se) and in its tile layout at N = 1001
+(ragged) and 65 and 130 (ids outside {0, 1}), the whole matrix exactly
+symmetric, with its VJP and the pallas-backend serving predictor.
 """
 
 import json
@@ -276,8 +277,9 @@ def cov_problem(dev, request):
 @pytest.mark.parametrize("B", [1, 512])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 def test_cov_kernel_matches_plain(dev, cov_problem, B, dtype):
-    """f64: max |dK| / max |K| <= 1e-12; f32 <= 1e-5; the value-value block
-    exactly symmetric; one launch, no plain call."""
+    """f64: max |dK| / max |K| <= 1e-12; f32 <= 1e-5; the whole matrix
+    exactly symmetric (each pair is evaluated once and written twice); one
+    launch, no plain call."""
     from gptools_tpu_torch.ops import cov_cuda
 
     config, kind, _, X, nid = cov_problem
@@ -289,8 +291,40 @@ def test_cov_kernel_matches_plain(dev, cov_problem, B, dtype):
     Kp = cov_cuda.cov_plain(kind, X, nid, th)
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     assert float((K - Kp).abs().max() / Kp.abs().max()) <= tol
-    vv = (nid[:, None] == 0) & (nid[None, :] == 0)
-    assert bool(((K == K.mT) | ~vv).all())
+    assert bool((K == K.mT).all())
+
+
+@pytest.mark.parametrize("config", [4, 2], ids=["config4_gibbs_tanh", "config2_se"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_cov_kernel_ragged_tiles(dev, config, dtype):
+    """The tile layout at N = 1001 (999 points and two slopes: a ragged
+    last tile of 41, and odd rows, which start off 16-byte boundaries),
+    B = 16: within 1e-12 (f64) / 1e-5 (f32) of the plain version, exactly
+    symmetric; and at N = 65 and 130 with ids outside {0, 1}, whose rows
+    and columns are exact zeros."""
+    from gptools_tpu_torch.ops import cov_cuda
+
+    kind = "gibbs_tanh" if config == 4 else "se"
+    prob = configs.ALL_CONFIGS[config](n_points=999, dtype=torch.float64, device=dev)
+    X, nid = prob.data.Xf.reshape(-1), prob.data.nid
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    th = _golden_draws(config, 16, dtype, dev, seed=16)
+    K = cov_cuda.cov_cuda(kind, X, nid, th)
+    Kp = cov_cuda.cov_plain(kind, X, nid, th)
+    assert K.shape == (16, 1001, 1001)
+    assert float((K - Kp).abs().max() / Kp.abs().max()) <= tol
+    assert bool((K == K.mT).all())
+    rng = np.random.default_rng(config)
+    for n in (65, 130):
+        Xs = torch.tensor(np.sort(rng.uniform(0.0, 1.2, n)), device=dev)
+        ids = (rng.uniform(size=n) < 0.2).astype(np.int32)
+        ids[[3, n - 5]] = [-1, 2]
+        ids = torch.tensor(ids, device=dev)
+        K = cov_cuda.cov_cuda(kind, Xs, ids, th[:3])
+        Kp = cov_cuda.cov_plain(kind, Xs, ids, th[:3])
+        assert float((K - Kp).abs().max() / Kp.abs().max()) <= tol
+        assert bool((K == K.mT).all())
+        assert bool((K[:, [3, n - 5], :] == 0).all() and (K[:, :, [3, n - 5]] == 0).all())
 
 
 def test_cov_vjp_gradient_on_card(dev, cov_problem):

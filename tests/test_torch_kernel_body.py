@@ -7,8 +7,12 @@ gradients (held to autograd at 1e-10); the host build runs its 32 lanes
 phase by phase, in order 0..31 and, for the lane-order test, 31..0, which
 must give the same bits. `cov_entry.cuh` holds the covariance kernel's
 per-point and per-entry functions (held to the fused single-theta builders
-at 1e-12). `evidence_chain_host.cpp` builds both with the host C++
-compiler. Skips when no C++ compiler is installed.
+at 1e-12) and its two layouts (a block per theta group for N <= 64,
+64 x 64 tiles above) as functions of the thread index, whose host build
+runs every phase's 256 threads in both orders and must give the same bits,
+an exactly symmetric K and the plain version's entries.
+`evidence_chain_host.cpp` builds both with the host C++ compiler. Skips
+when no C++ compiler is installed.
 """
 
 import ctypes
@@ -294,17 +298,60 @@ def test_body_lane_order_is_bitwise_invariant(body, kind, where):
         np.testing.assert_array_equal(fwd[2][k], rev[2][k], err_msg=k)
 
 
-# ---- the covariance kernel's per-point and per-entry functions --------------
+# ---- the covariance kernel: both layouts, thread by thread -------------------
+
+
+def _cov_host(host_lib, kind, dtype, reversed=False, sms=132):
+    """The host build of the kernel's launch on a card of ``sms``
+    multiprocessors (132, an H100: few thetas take one round of pairs a
+    block; 1: every theta group fills it, blocks of 256 threads)."""
+    fn = getattr(host_lib, f"gt_{kind}_cov_host_{'rev_' if reversed else ''}{dtype}")
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
+    fn.restype = ctypes.c_int
+    npdt = np.float64 if dtype == "f64" else np.float32
+
+    def run(X, nid, theta, offset=0):
+        """K (B, n, n) from a NaN-filled buffer, the output `offset`
+        entries into it (an output that starts off a 16-byte boundary);
+        the entries around the output must stay NaN."""
+        B, n = theta.shape[0], X.shape[0]
+        th = np.ascontiguousarray(theta, npdt)
+        buf = np.full(B * n * n + 8, np.nan, npdt)
+        out = buf[offset:offset + B * n * n]
+        args = (np.ascontiguousarray(X, np.float64), np.ascontiguousarray(nid, np.int32), th)
+        assert fn(n, *(a.ctypes.data_as(ctypes.c_void_p) for a in args), B,
+                  out.ctypes.data_as(ctypes.c_void_p), sms) == 0
+        assert np.isnan(buf[:offset]).all() and np.isnan(buf[offset + B * n * n:]).all()
+        return out.reshape(B, n, n)
+
+    return run
+
+
+def _cov_thetas(rng, kind, B):
+    if kind == "se":
+        return np.stack([rng.uniform(0.4, 1.6, B), rng.uniform(0.2, 0.8, B)], 1)
+    return np.stack([rng.uniform(0.5, 1.5, B), rng.uniform(0.3, 1.2, B),
+                     rng.uniform(0.05, 0.4, B), rng.uniform(0.03, 0.2, B),
+                     rng.uniform(0.3, 0.9, B)], 1)
+
+
+def _cov_points(rng, n):
+    """n sorted points on (0, 1.2), about a fifth of them slope rows, one
+    id -1 and one id 2 (exact zeros) from n = 7 on."""
+    X = np.sort(rng.uniform(0.0, 1.2, n))
+    nid = (rng.uniform(size=n) < 0.2).astype(np.int32)
+    if n >= 7:
+        nid[rng.choice(n, 2, replace=False)] = [-1, 2]
+    return X, nid
 
 
 @pytest.mark.parametrize("kind", ["se", "gibbs_tanh"])
 def test_cov_entries_match_plain(host_lib, kind):
     """Every entry of K for a theta batch of 3, slopes interleaved and ids
     outside {0, 1}, against the fused single-theta builder at 1e-12; the
-    value-value block exactly symmetric."""
-    fn = getattr(host_lib, f"gt_{kind}_cov_host_f64")
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    whole matrix exactly symmetric, the bad ids' rows and columns exact
+    zeros."""
     rng = np.random.default_rng(12)
     n = 23
     X = np.sort(rng.uniform(0.0, 1.2, n))
@@ -314,13 +361,48 @@ def test_cov_entries_match_plain(host_lib, kind):
                  [rng.uniform(0.5, 1.5, 3), rng.uniform(0.3, 1.2, 3),
                   rng.uniform(0.05, 0.4, 3), rng.uniform(0.03, 0.2, 3),
                   rng.uniform(0.7, 1.0, 3)], 1))
-    out = np.empty((3, n, n))
-    rc = fn(n, *(a.ctypes.data_as(ctypes.c_void_p) for a in (X, nid, theta)), 3,
-            out.ctypes.data_as(ctypes.c_void_p))
-    assert rc == 0
+    out = _cov_host(host_lib, kind, "f64")(X, nid, theta)
     ref = cov_cuda.cov_plain(kind, torch.tensor(X), torch.tensor(nid), torch.tensor(theta))
     np.testing.assert_allclose(out, ref.numpy(), rtol=1e-12, atol=1e-14)
-    vv = (nid[:, None] == 0) & (nid[None, :] == 0)
-    assert (out == out.transpose(0, 2, 1))[:, vv].all()
+    assert (out == out.transpose(0, 2, 1)).all()
     bad = (nid < 0) | (nid > 1)
     assert (out[:, bad, :] == 0).all() and (out[:, :, bad] == 0).all()
+
+
+# n: one point; 2 and 7 (several thetas a block); the serving 27 and 32;
+# 31 and 33 around a warp; 63 and 64, the last of the small layout; 65
+# and 130, tiles with a ragged edge of 1 and 2
+COV_SIZES = [1, 2, 7, 27, 31, 32, 33, 63, 64, 65, 130]
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("n", COV_SIZES)
+@pytest.mark.parametrize("kind", ["se", "gibbs_tanh"])
+def test_cov_layout_thread_order_and_plain(host_lib, kind, n, B, dtype):
+    """The kernel's layout for this n (small up to 64, tiles above), its
+    threads run 0..nt-1 and nt-1..0 in every phase on NaN-filled shared
+    memory, with the small layout's blocks sized for an H100 (one round
+    of pairs) and for a card the groups fill (256 threads): the same bits
+    in all four runs, every entry written (no NaN; nothing written around
+    the output), the whole matrix exactly symmetric, ids outside {0, 1}
+    exact zeros, and K within 1e-12 (float64) / 1e-5 (float32, the plain
+    version rounds X to float32 first) of max |K| of the plain version.
+    With B = 3 the output also starts off a 16-byte boundary."""
+    rng = np.random.default_rng([n, B, kind == "se"])
+    X, nid = _cov_points(rng, n)
+    theta = _cov_thetas(rng, kind, B)
+    offset = 1 if B == 3 else 0
+    fwd = _cov_host(host_lib, kind, dtype)(X, nid, theta, offset)
+    assert not np.isnan(fwd).any()
+    for rev, sms in ((True, 132), (False, 1), (True, 1)):
+        other = _cov_host(host_lib, kind, dtype, reversed=rev, sms=sms)(X, nid, theta, offset)
+        np.testing.assert_array_equal(fwd.view(np.uint8), other.view(np.uint8))
+    assert (fwd == fwd.transpose(0, 2, 1)).all()
+    bad = (nid < 0) | (nid > 1)
+    assert (fwd[:, bad, :] == 0).all() and (fwd[:, :, bad] == 0).all()
+    tdt = torch.float64 if dtype == "f64" else torch.float32
+    ref = cov_cuda.cov_plain(kind, torch.tensor(X), torch.tensor(nid),
+                             torch.tensor(theta, dtype=tdt)).numpy()
+    tol = 1e-12 if dtype == "f64" else 1e-5
+    assert np.abs(fwd - ref).max() <= tol * max(np.abs(ref).max(), 1e-300)
