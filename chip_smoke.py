@@ -39,10 +39,11 @@ Phases (any failure raises and exits non-zero; no phase falls back):
    thetas from the golden posteriors. Gates: float64 max |dK| / max |K|
    <= 1e-12, float32 <= 1e-5; the whole matrix exactly symmetric (K ==
    K^T, every block). Per shape the layout the launch took, CUDA-event
-   times per call of kernel and plain version, the kernel's device time
-   per launch (torch.profiler; and a CUDA graph of 20 launches), the
-   wrapper's host time per call (CPU clock around 200 calls) and the
-   kernel's bound.
+   times per call of kernel (with the points made once, as a `GPModel`
+   calls it) and plain version, the kernel's device time per launch
+   (torch.profiler; and a CUDA graph of 20 launches), the wrapper's host
+   time per call (CPU clock around 200 calls) with the points made once
+   and with them made each call (``cov_cuda``), and the kernel's bound.
 4. main paths in float32, each with the launch counts set to 0 just before
    and read just after: config 4 through ``smc_then_chees`` at 12288 chains
    (75 warmup + 300 samples), configs 2 and 3 at 4096 chains (100 + 500);
@@ -561,6 +562,7 @@ def cov_parity(kind, X, nid, thetas, card, time_plain_reps=30):
     from gptools_tpu_torch.ops import cov_cuda
 
     B, n = thetas.shape[0], X.shape[0]
+    pts = cov_cuda.points(X, nid)
     out = {}
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         th = thetas.to(dtype)
@@ -576,24 +578,30 @@ def cov_parity(kind, X, nid, thetas, card, time_plain_reps=30):
         lay = cov_cuda.layout(n, B, dtype)
         tag = f"phase3b {kind} (B, N) = ({B}, {n}) {str(dtype).replace('torch.', '')}"
         print(f"{tag}: max |dK| / max |K| = {err / kmax:.3e} (tol {tol:g}), whole "
-              f"matrix exactly symmetric: {sym}; layout {lay['layout']}: "
-              f"{lay['thetas_per_block']} theta(s) a block, grid {lay['grid_x']} x "
-              f"{lay['grid_yz']}, {lay['threads']} threads, {lay['smem_bytes']} bytes "
-              f"of shared memory a block")
+              f"matrix exactly symmetric: {sym}; layout {lay['layout']}: grid "
+              f"{lay['grid_x']} x {lay['grid_yz']}, {lay['threads']} threads, "
+              f"{lay['smem_bytes']} bytes of shared memory a block")
         if not err / kmax <= tol or not sym:
             fail(f"{tag}: kernel/plain disagree or K is not exactly symmetric")
         del K
-        t_k = cuda_ms(lambda: cov_cuda.cov_cuda(kind, X, nid, th))
+
+        def call():  # as a GPModel calls it: the dataset's points made once
+            return cov_cuda.cov_vjp(kind, pts, th)
+
+        t_k = cuda_ms(call)
         t_p = cuda_ms(lambda: cov_cuda.cov_plain(kind, X, nid, th),
                       reps=time_plain_reps, warm=1)
         b_ms, b_by = cov_bound(kind, nid, B, th.element_size())
-        dev_us = device_us(lambda: cov_cuda.cov_cuda(kind, X, nid, th), "cov_")
+        dev_us = device_us(call, "cov_")
         dev_txt = "not measured" if dev_us is None else f"{dev_us:.3f} us"
-        t_graph = graph_ms(lambda: cov_cuda.cov_cuda(kind, X, nid, th))
-        host_us = wrapper_host_us(lambda: cov_cuda.cov_cuda(kind, X, nid, th))
+        t_graph = graph_ms(call)
+        host_us = wrapper_host_us(call)
+        host_raw_us = wrapper_host_us(lambda: cov_cuda.cov_cuda(kind, X, nid, th))
         print(f"{tag}: kernel {t_k:.4f} ms per call (device time {dev_txt} per "
               f"launch by the profiler, {1e3 * t_graph:.3f} us by a CUDA graph of 20; "
-              f"wrapper host time {host_us:.2f} us per call, 200 calls), plain "
+              f"wrapper host time {host_us:.2f} us per call with the points made "
+              f"once, {host_raw_us:.2f} us with them made each call (cov_cuda), "
+              f"200 calls), plain "
               f"{t_p:.4f} ms, bound {b_ms * 1e3:.3f} us ({b_by}); kernel call at "
               f"{100 * b_ms / t_k:.2f}% of the bound"
               + ("" if dev_us is None else f", launch at {100e3 * b_ms / dev_us:.2f}%")

@@ -20,12 +20,11 @@
 // only the first and last vectors of a run, where they are partial, are
 // stored entry by entry.
 //
-// - small (n <= COV_SMALL_N): a block takes `cov_group(n)` consecutive
-//   thetas, whose outputs are one contiguous span, its threads sized for
-//   balanced rounds of pairs (`cov_small_threads`). Phase 1: the points
-//   and the per-point operands of every (theta, point); phase 2: the
-//   pairs t, t + nt, ... (`cov_pair`), written twice into the span's
-//   image; phase 3: the span in vectors.
+// - small (n <= COV_SMALL_N): a block takes one theta, whose output is
+//   one contiguous span, its threads sized for balanced rounds of pairs
+//   (`cov_small_threads`). Phase 1: the points and their per-point
+//   operands; phase 2: the pairs t, t + nt, ... (`cov_pair`), written
+//   twice into the span's image; phase 3: the span in vectors.
 // - bands (n <= 32 and fewer thetas than SMs, `cov_small_direct`): a block
 //   takes COV_BAND rows of one theta, a thread per entry of them; phase 1
 //   as the small layout's, phase 2 stores each pair straight from
@@ -100,9 +99,7 @@ constexpr int COV_THREADS = 256;           // threads of a tile block
 constexpr int COV_ROUND = 320;             // most threads of a small block that fills
 constexpr int COV_BAND = 4;                // rows of a direct small block
 constexpr int COV_SMALL_N = 64;            // n up to this: the small layout
-constexpr int COV_IMG = 4096;              // entries of the small layout's image
-constexpr int COV_GROUP_MAX = 16;          // thetas of a small block
-constexpr int COV_POINTS = 128;            // (theta, point) slots of a small block
+constexpr int COV_IMG = COV_SMALL_N * COV_SMALL_N;  // entries of the small layout's image
 constexpr int COV_TILE = 64;               // tile side
 constexpr int COV_SUB = 16;                // threads along a tile side
 constexpr int COV_MICRO = COV_TILE / COV_SUB;  // entries along a thread's side
@@ -185,16 +182,6 @@ GT_HD unsigned cov_pair(int q) {
 #endif
 }
 
-// Thetas of a small block: about one pair a thread, within the image
-// (n^2 entries a theta) and COV_GROUP_MAX. Then g n <= COV_POINTS for
-// every n <= COV_SMALL_N (at most 16 * 5, at n = 5).
-GT_HD int cov_group(int n) {
-  int g = COV_THREADS / (n * (n + 1) / 2);
-  if (g > COV_IMG / (n * n)) g = COV_IMG / (n * n);
-  if (g > COV_GROUP_MAX) g = COV_GROUP_MAX;
-  return g < 1 ? 1 : g;
-}
-
 // Whether small blocks store straight from registers: where B thetas do
 // not fill the card's `sms` multiprocessors (B = 1, the point predictor's
 // state), the time is the latency of the launch and of one block, and
@@ -206,33 +193,24 @@ GT_HD int cov_group(int n) {
 // predictor's 512 states), the image and its vector stores.
 GT_HD bool cov_small_direct(int n, int B, int sms) { return n <= 32 && B < sms; }
 
-// Blocks of the image layout: a group of thetas each.
-GT_HD int cov_small_blocks(int n, int B) {
-  const int G = cov_group(n);
-  return (B + G - 1) / G;
-}
-
-// Threads of an image-layout block, in whole warps and balanced rounds of
-// pairs: rounds of up to COV_ROUND threads where the groups fill the
-// card's `sms` multiprocessors (several blocks an SM, all in one wave at
-// the serving shapes), else one round of up to 1024 threads.
-GT_HD int cov_small_threads(int n, int B, int sms) {
-  const int G = cov_group(n), groups = (B + G - 1) / G;
-  const int pairs = G * n * (n + 1) / 2;
-  const int cap = groups >= sms ? COV_ROUND : 1024;
-  const int rounds = (pairs + cap - 1) / cap;
+// Threads of an image-layout block: the theta's pairs in balanced rounds
+// of up to COV_ROUND threads, in whole warps (several blocks an SM, all
+// in one wave at the serving shapes: 192 threads at n = 27, 288 at 32).
+GT_HD int cov_small_threads(int n) {
+  const int pairs = n * (n + 1) / 2;
+  const int rounds = (pairs + COV_ROUND - 1) / COV_ROUND;
   const int t = ((pairs + rounds - 1) / rounds + 31) / 32 * 32;
   return t < 64 ? 64 : t;
 }
 
-// A small block's shared memory: the image (IMG entries, the group's
-// span shifted by its misalignment; none when direct), the operands of
-// the (theta, point) slots, the thetas, and the points' x and id.
+// A small block's shared memory: the image (IMG entries, the theta's
+// span shifted by its misalignment; none when direct), the per-point
+// operands, the theta, and the points' x and id.
 template <typename T, int IMG>
 struct alignas(16) CovSmallShared {
   T img[IMG + 4];
-  T a0[COV_POINTS], a1[COV_POINTS];
-  T th[COV_GROUP_MAX * P_MAX];
+  T a0[COV_SMALL_N], a1[COV_SMALL_N];
+  T th[P_MAX];
   double x[COV_SMALL_N];
   int nid[COV_SMALL_N];
 };
@@ -252,31 +230,28 @@ GT_HD CovSmallSmem<T> small_smem(CovSmallShared<T, IMG>& s) {
   return CovSmallSmem<T>{s.img, s.a0, s.a1, s.th, s.x, s.nid};
 }
 
-// One block's work: thetas [b0, b0 + nb), their output span from out;
-// when direct, rows [r0, r0 + COV_BAND) of theta b0, whose operands need
-// the points [0, npts).
+// One block's work: theta b, its output span from out; when direct, rows
+// [r0, r0 + COV_BAND) of it, whose operands need the points [0, npts).
 template <typename T>
 struct CovSmall {
-  int n, npairs, nb, s, nt;  // s: vec_shift(out); nt: threads of the block
-  bool direct;               // stores from registers (no image, no phase 3)
+  int n, npairs, s, nt;  // s: vec_shift(out); nt: threads of the block
+  bool direct;           // stores from registers (no image, no phase 3)
   int r0, npts;
   const double* X;
   const int* nid;
-  const T* theta;  // the group's first row
-  T* out;          // the group's first entry
+  const T* theta;  // the theta's row
+  T* out;          // the theta's first entry
   CovSmallSmem<T> sm;
 };
 
-// the block of group `group` (G thetas a group) of the image layout
+// the block of theta b of the image layout
 template <typename T, int K>
-GT_HD CovSmall<T> cov_small(int n, const double* X, const int* nid, const T* theta,
-                            int B, T* out, int G, int group, int nt, CovSmallSmem<T> sm) {
+GT_HD CovSmall<T> cov_small(int n, const double* X, const int* nid, const T* theta, T* out,
+                            int b, int nt, CovSmallSmem<T> sm) {
   constexpr int P = KindParams<K>::value;
-  const int b0 = group * G;
-  const int nb = B - b0 < G ? B - b0 : G;
-  T* o = out + (size_t)b0 * n * n;
-  return CovSmall<T>{n, n * (n + 1) / 2, nb, vec_shift(o), nt, false, 0, n, X, nid,
-                     theta + (size_t)b0 * P, o, sm};
+  T* o = out + (size_t)b * n * n;
+  return CovSmall<T>{n, n * (n + 1) / 2, vec_shift(o), nt, false, 0, n, X, nid,
+                     theta + (size_t)b * P, o, sm};
 }
 
 // the block of band `band` of theta b (direct)
@@ -286,93 +261,75 @@ GT_HD CovSmall<T> cov_small_band(int n, const double* X, const int* nid, const T
   constexpr int P = KindParams<K>::value;
   const int r0 = band * COV_BAND;
   T* o = out + (size_t)b * n * n;
-  return CovSmall<T>{n, n * (n + 1) / 2, 1, 0, 32 * COV_BAND, true, r0,
+  return CovSmall<T>{n, n * (n + 1) / 2, 0, 32 * COV_BAND, true, r0,
                      r0 + COV_BAND < n ? r0 + COV_BAND : n, X, nid,
                      theta + (size_t)b * P, o, sm};
 }
 
-// phase 1, thread t: slots e = t, t + nt, ...: the operands of (theta,
-// point) e (and, from the first theta, the point's x and id) and theta
-// entry e of the group. A slot's global reads come before its shared
-// stores, so they are issued together.
+// phase 1, thread t: points e = t, t + nt, ...: x, id and the operands of
+// point e, and theta entry e. A slot's global reads come before its
+// shared stores, so they are issued together.
 template <typename T, int K>
 GT_HD void small_points(const CovSmall<T>& c, int t) {
   constexpr int P = KindParams<K>::value;
   const CovSmallSmem<T>& s = c.sm;
-  const int npts = c.nb == 1 ? c.npts : c.nb * c.n, nth = c.nb * P;
-  for (int e = t; e < npts || e < nth; e += c.nt) {
-    const int g = c.nb == 1 ? 0 : e / c.n, p = e - g * c.n;
-    const bool pt = e < npts;
+  for (int e = t; e < c.npts || e < P; e += c.nt) {
+    const bool pt = e < c.npts;
     T th[P] = {}, tv = T(0);
     double x = 0.0;
     int id = 0;
     if (pt) {
-      x = c.X[p];
-      id = c.nid[p];
-      for (int k = 0; k < P; ++k) th[k] = c.theta[g * P + k];
+      x = c.X[e];
+      id = c.nid[e];
+      for (int k = 0; k < P; ++k) th[k] = c.theta[k];
     }
-    if (e < nth) tv = c.theta[e];
+    if (e < P) tv = c.theta[e];
     if (pt) {
       T a0, a1;
       cov_point<T, K>(th, x, a0, a1);
-      if (g == 0) {
-        s.x[p] = x;
-        s.nid[p] = id;
-      }
+      s.x[e] = x;
+      s.nid[e] = id;
       s.a0[e] = a0;
       s.a1[e] = a1;
     }
-    if (e < nth) s.th[e] = tv;
+    if (e < P) s.th[e] = tv;
   }
 }
 
-// K of pair (i, j) of theta g
+// K of pair (i, j) of the block's theta th
 template <typename T, int K>
-GT_HD T small_entry(const CovSmall<T>& c, const T* th, int g, int i, int j) {
+GT_HD T small_entry(const CovSmall<T>& c, const T* th, int i, int j) {
   const CovSmallSmem<T>& s = c.sm;
-  const int pi = g * c.n + i, pj = g * c.n + j;
-  return cov_entry<T, K>(th, s.x[i], s.x[j], s.nid[i], s.nid[j], s.a0[pi], s.a1[pi],
-                         s.a0[pj], s.a1[pj]);
-}
-
-// Phase 2 of the image layout: pairs t, t + nt, ... of the group (theta
-// by theta, each lower triangle row by row), each at (i, j) and (j, i) of
-// its theta's n x n part of the image; one theta's rows in registers
-// (ONE), else each pair's from shared memory.
-template <typename T, int K, bool ONE>
-GT_HD void small_pairs_of(const CovSmall<T>& c, int t) {
-  constexpr int P = KindParams<K>::value;
-  const int n = c.n;
-  T th0[P];
-  for (int k = 0; k < P; ++k) th0[k] = c.sm.th[k];
-  for (int q = t; q < c.nb * c.npairs; q += c.nt) {
-    const int g = ONE ? 0 : q / c.npairs;
-    const unsigned e = cov_pair(q - g * c.npairs);
-    const int i = int(e >> 6), j = int(e & 63);
-    const T* th = th0;
-    if constexpr (!ONE) th = c.sm.th + g * P;
-    const T v = small_entry<T, K>(c, th, g, i, j);
-    T* im = c.sm.img + c.s + g * n * n;
-    im[i * n + j] = v;
-    im[j * n + i] = v;
-  }
+  return cov_entry<T, K>(th, s.x[i], s.x[j], s.nid[i], s.nid[j], s.a0[i], s.a1[i], s.a0[j],
+                         s.a1[j]);
 }
 
 // phase 2, thread t. Direct: the entry (i, j) = (r0 + t / 32, t % 32) if
-// i >= j, to (i, j) and (j, i) of the output. Else `small_pairs_of`.
+// i >= j, to (i, j) and (j, i) of the output. Else pairs t, t + nt, ...
+// of the lower triangle (row by row), each to (i, j) and (j, i) of the
+// image, the theta in registers.
 template <typename T, int K>
 GT_HD void small_pairs(const CovSmall<T>& c, int t) {
+  constexpr int P = KindParams<K>::value;
+  const int n = c.n;
+  T th[P];
+  for (int k = 0; k < P; ++k) th[k] = c.sm.th[k];
   if (c.direct) {
-    const int n = c.n, i = c.r0 + (t >> 5), j = t & 31;
+    const int i = c.r0 + (t >> 5), j = t & 31;
     if (i < n && j <= i) {
-      const T v = small_entry<T, K>(c, c.sm.th, 0, i, j);
+      const T v = small_entry<T, K>(c, th, i, j);
       c.out[i * n + j] = v;
       c.out[j * n + i] = v;
     }
-  } else if (c.nb == 1) {
-    small_pairs_of<T, K, true>(c, t);
-  } else {
-    small_pairs_of<T, K, false>(c, t);
+    return;
+  }
+  T* im = c.sm.img + c.s;
+  for (int q = t; q < c.npairs; q += c.nt) {
+    const unsigned e = cov_pair(q);
+    const int i = int(e >> 6), j = int(e & 63);
+    const T v = small_entry<T, K>(c, th, i, j);
+    im[i * n + j] = v;
+    im[j * n + i] = v;
   }
 }
 
@@ -380,7 +337,7 @@ GT_HD void small_pairs(const CovSmall<T>& c, int t) {
 template <typename T>
 GT_HD void small_store(const CovSmall<T>& c, int t) {
   constexpr int V = Vec<T>::value;
-  const int len = c.nb * c.n * c.n;
+  const int len = c.n * c.n;
   const int nvec = (c.s + len + V - 1) / V;
   for (int k = t; k < nvec; k += c.nt) put_vec(c.out, c.sm.img, c.s, len, k);
 }

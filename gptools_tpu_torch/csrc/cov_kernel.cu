@@ -13,10 +13,10 @@
 //
 // Layouts (cov_entry.cuh):
 // - n <= 64 (the serving shapes, N = 27 and 32): `cov_small_kernel`, a
-//   block per group of `cov_group(n)` thetas (1 from n = 16), grid-stride
-//   over the groups; the group's contiguous span is built in shared memory
-//   and stored in 16-byte vectors, by blocks of up to 320 threads. At
-//   (B, N) = (512, 27) that is 512 blocks of one theta each, in one wave,
+//   block per theta, grid-stride over B; the theta's contiguous span is
+//   built in shared memory and stored in 16-byte vectors, by blocks of up
+//   to 320 threads. At
+//   (B, N) = (512, 27) that is 512 blocks, in one wave,
 //   where the earlier design ran four blocks per theta with one scalar
 //   store per entry. Fewer thetas than SMs (B = 1) at n <= 32 take
 //   `cov_band_kernel`: a block per band of 4 rows of a theta (7 and 8
@@ -40,18 +40,19 @@
 // bound's order, and 3 tile blocks an SM overlap one block's entries with
 // another's stores. At the serving shapes the time is the launch and one
 // block's latency: the per-point loads and tanh, one or two rounds of
-// FP64 pairs, and one wave's stores (scripts/profile_cov_kernel.py reads
-// each phase's cycles).
+// FP64 pairs, and one wave's stores (`scripts/profile_torch_leapfrog.py
+// --cov` reads each phase's cycles).
 //
-// Built with -DGT_PHASE_CLOCK (scripts/profile_cov_kernel.py), thread 0 of
-// the first and the last block read the SM clock after every phase and
-// barrier (`gt_cov_phase_clocks`); the real library has no such code.
+// Built with -DGT_PHASE_CLOCK (`scripts/profile_torch_leapfrog.py --cov`),
+// thread 0 of the first and the last block read the SM clock after every
+// phase and barrier (`gt_cov_phase_clocks`); the real library has no such
+// code.
 //
 // Exports gt_{se,gibbs_tanh}_cov_{f32,f64}(n, X, nid, theta, B, out,
 // stream): X (n,) double, nid (n,) int32, theta (B, P) row-major in T,
 // out (B, n, n) in T allocated by the caller (any sizeof(T)-aligned
 // address); returns cudaGetLastError() after the launch. And
-// gt_cov_layout(n, B, item, info) fills info[0..5] with the layout a
+// gt_cov_layout(n, B, item, info) fills info[0..4] with the layout a
 // launch at (n, B) and element size `item` takes on the current device
 // (`layout` below).
 
@@ -108,17 +109,19 @@ constexpr size_t kStaticSmem = 48 * 1024;
 // from shared memory the entries fit without spilling, and 3 blocks hide
 // more of the entries' latency than 2.
 constexpr int kTileMinBlocks = 3;
+// Small blocks per SM that the compiler sizes the registers for (at most
+// 64 a thread), so that the serving shapes' 512 blocks take one wave.
+constexpr int kSmallMinBlocks = 3;
 
 template <typename T, int K>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(gt::COV_ROUND, kSmallMinBlocks)
 cov_small_kernel(int n, const double* __restrict__ X, const int* __restrict__ nid,
-                 const T* __restrict__ theta, int B, T* __restrict__ out, int G) {
+                 const T* __restrict__ theta, int B, T* __restrict__ out) {
   __shared__ gt::CovSmallShared<T, gt::COV_IMG> sm;
-  const int blocks = gt::cov_small_blocks(n, B);
-  for (int g = blockIdx.x; g < blocks; g += gridDim.x) {
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
     GT_COV_MARK(0);
     const gt::CovSmall<T> c =
-        gt::cov_small<T, K>(n, X, nid, theta, B, out, G, g, blockDim.x, gt::small_smem(sm));
+        gt::cov_small<T, K>(n, X, nid, theta, out, b, blockDim.x, gt::small_smem(sm));
     gt::small_points<T, K>(c, threadIdx.x);
     GT_COV_MARK(1);
     __syncthreads();
@@ -210,56 +213,53 @@ int sm_count() {
 }
 
 // The layout of a launch at (n, B) with elements of `item` bytes on a card
-// of `sms` multiprocessors, into info[0..5]: 0 small / 1 tiles / 2 bands,
-// thetas a block, grid x, grid y (bands) or z (tiles), threads a block,
-// shared bytes a block; false where the tile grid would not fit the grid's
-// x axis.
+// of `sms` multiprocessors, into info[0..4]: 0 small / 1 tiles / 2 bands,
+// grid x, grid y (bands) or z (tiles), threads a block, shared bytes a
+// block; false where the tile grid would not fit the grid's x axis.
 bool layout(int n, int B, int item, int sms, int* info) {
   const bool f32 = item == 4;
   if (n <= gt::COV_SMALL_N && gt::cov_small_direct(n, B, sms)) {
     const int sh = int(f32 ? sizeof(gt::CovSmallShared<float, 0>)
                            : sizeof(gt::CovSmallShared<double, 0>));
-    const int v[6] = {2, 1, (n + gt::COV_BAND - 1) / gt::COV_BAND, B, 32 * gt::COV_BAND, sh};
-    for (int k = 0; k < 6; ++k) info[k] = v[k];
+    const int v[5] = {2, (n + gt::COV_BAND - 1) / gt::COV_BAND, B, 32 * gt::COV_BAND, sh};
+    for (int k = 0; k < 5; ++k) info[k] = v[k];
     return true;
   }
   if (n <= gt::COV_SMALL_N) {
-    const int blocks = gt::cov_small_blocks(n, B);
     const int sh = int(f32 ? sizeof(gt::CovSmallShared<float, gt::COV_IMG>)
                            : sizeof(gt::CovSmallShared<double, gt::COV_IMG>));
-    const int v[6] = {0, gt::cov_group(n), blocks < kMaxGrid ? blocks : kMaxGrid, 1,
-                      gt::cov_small_threads(n, B, sms), sh};
-    for (int k = 0; k < 6; ++k) info[k] = v[k];
+    const int v[5] = {0, B < kMaxGrid ? B : kMaxGrid, 1, gt::cov_small_threads(n), sh};
+    for (int k = 0; k < 5; ++k) info[k] = v[k];
     return true;
   }
   const long long nt = (n + gt::COV_TILE - 1) / gt::COV_TILE;
   const long long tiles = nt * (nt + 1) / 2;
   if (tiles > 0x7fffffffLL) return false;
   const int sh = int(f32 ? gt::cov_tile_bytes<float>() : gt::cov_tile_bytes<double>());
-  const int v[6] = {1, 1, int(tiles), B < kMaxGrid ? B : kMaxGrid, gt::COV_THREADS, sh};
-  for (int k = 0; k < 6; ++k) info[k] = v[k];
+  const int v[5] = {1, int(tiles), B < kMaxGrid ? B : kMaxGrid, gt::COV_THREADS, sh};
+  for (int k = 0; k < 5; ++k) info[k] = v[k];
   return true;
 }
 
 template <typename T, int K>
 int launch(int n, const void* X, const void* nid, const void* theta, int B,
            void* out, void* stream) {
-  int info[6];
+  int info[5];
   if (n < 1 || B < 1 || !layout(n, B, int(sizeof(T)), sm_count(), info))
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = (cudaStream_t)stream;
   const double* Xd = (const double*)X;
   const int* ids = (const int*)nid;
   if (info[0] == 2) {
-    cov_band_kernel<T, K><<<dim3(info[2], info[3]), info[4], 0, st>>>(
+    cov_band_kernel<T, K><<<dim3(info[1], info[2]), info[3], 0, st>>>(
         n, Xd, ids, (const T*)theta, (T*)out);
   } else if (info[0] == 0) {
-    cov_small_kernel<T, K><<<info[2], info[4], 0, st>>>(n, Xd, ids, (const T*)theta, B,
-                                                        (T*)out, info[1]);
+    cov_small_kernel<T, K><<<info[1], info[3], 0, st>>>(n, Xd, ids, (const T*)theta, B,
+                                                        (T*)out);
   } else {
     const int attr = allow_tile_smem<T, K>();
     if (attr != 0) return attr;
-    cov_tile_kernel<T, K><<<dim3(info[2], 1, info[3]), info[4], info[5], st>>>(
+    cov_tile_kernel<T, K><<<dim3(info[1], 1, info[2]), info[3], info[4], st>>>(
         n, Xd, ids, (const T*)theta, B, (T*)out);
   }
   return int(cudaGetLastError());

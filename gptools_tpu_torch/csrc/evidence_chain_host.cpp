@@ -79,8 +79,8 @@ void fill_nan(T* p, size_t count) {
 template <typename T, int IMG>
 void fill_small(gt::CovSmallShared<T, IMG>& s) {
   fill_nan(s.img, sizeof s.img / sizeof(T));
-  fill_nan(s.a0, gt::COV_POINTS);
-  fill_nan(s.a1, gt::COV_POINTS);
+  fill_nan(s.a0, gt::COV_SMALL_N);
+  fill_nan(s.a1, gt::COV_SMALL_N);
   fill_nan(s.th, sizeof s.th / sizeof(T));
   fill_nan(s.x, gt::COV_SMALL_N);
   std::fill(s.nid, s.nid + gt::COV_SMALL_N, 0);
@@ -113,14 +113,13 @@ int run_cov(int n, const double* X, const int* nid, const T* theta, int B, T* ou
     return 0;
   }
   if (n <= gt::COV_SMALL_N) {
-    const int G = gt::cov_group(n);
-    nt = gt::cov_small_threads(n, B, sms);
+    nt = gt::cov_small_threads(n);
     std::unique_ptr<gt::CovSmallShared<T, gt::COV_IMG>> sm(
         new gt::CovSmallShared<T, gt::COV_IMG>);
-    for (int g = 0; g < gt::cov_small_blocks(n, B); ++g) {
+    for (int b = 0; b < B; ++b) {
       fill_small(*sm);
       const gt::CovSmall<T> c =
-          gt::cov_small<T, K>(n, X, nid, theta, B, out, G, g, nt, gt::small_smem(*sm));
+          gt::cov_small<T, K>(n, X, nid, theta, out, b, nt, gt::small_smem(*sm));
       each([&](int t) { gt::small_points<T, K>(c, t); });
       each([&](int t) { gt::small_pairs<T, K>(c, t); });
       each([&](int t) { gt::small_store<T>(c, t); });

@@ -54,7 +54,7 @@ from gptools_tpu_torch.models.dataset import (
     resolve_device,
 )
 from gptools_tpu_torch.models.mean import MeanFunction, mean_vector
-from gptools_tpu_torch.ops import assemble, evidence, evidence_cuda, fused
+from gptools_tpu_torch.ops import assemble, cov_cuda, evidence, evidence_cuda, fused
 from gptools_tpu_torch.ops.kernels import DiagonalNoiseKernel, Kernel
 from gptools_tpu_torch.utils.bounds import CombinedBounds, MaskedBounds
 
@@ -173,6 +173,7 @@ class GPModel:
         self.hyperprior = prior
         self.bijector = self.hyperprior.bijector()
         self._plan_cache = None  # (Dataset, _EvidencePlan) last used
+        self._points_cache = None  # (Dataset, cov_cuda.CovPoints) last used
 
     # -- theta slicing (last axis) -------------------------------------------
     def _theta_k(self, theta):
@@ -340,6 +341,16 @@ class GPModel:
             return mean_vector(self.mean, tm[:, None], Xt, nid, multi_indices)[:, 0]
         return mean_vector(self.mean, tm.T, Xt, nid, multi_indices).T
 
+    def _cov_points(self, data: Dataset) -> cov_cuda.CovPoints:
+        """The covariance kernel's points of one dataset, made once and
+        reused while the same `Dataset` comes back (every state build of a
+        predictor on it)."""
+        if self._points_cache is None or self._points_cache[0] is not data:
+            self._points_cache = (
+                data, cov_cuda.points(data.Xf, data.nid, data.multi_indices)
+            )
+        return self._points_cache[1]
+
     def _latent_cov(self, theta, data: Dataset, include_noise: bool):
         """K over the data's points: the kernel (and the noise kernel if
         asked), by ``cov_backend``."""
@@ -351,7 +362,8 @@ class GPModel:
             self.kernel, data.multi_indices, data.num_dim
         ):
             Kff = fused.flagship_cov(
-                self.kernel, tk, data.Xf, data.nid, data.multi_indices, backend=backend
+                self.kernel, tk, data.Xf, data.nid, data.multi_indices, backend=backend,
+                points=self._cov_points(data) if backend == "pallas" else None,
             )
             if self.kernel.delta_terms():
                 Kff = Kff + assemble.delta_matrix(

@@ -12,8 +12,8 @@ Routes, chosen by the device of theta and nothing else:
 - CUDA: the kernel ``csrc/cov_kernel.cu`` (one launch for all B, where the
   reference ``vmap``s a single-theta Pallas call; each unordered pair
   evaluated once and written at (i, j) and (j, i), so K is exactly
-  symmetric; a block per theta group for N <= 64, 64 x 64 tiles of the
-  lower triangle above, see ``csrc/cov_entry.cuh``). It is built with the
+  symmetric; a block per theta for N <= 64, 64 x 64 tiles of the lower
+  triangle above, see ``csrc/cov_entry.cuh``). It is built with the
   evidence kernel into one library (`evidence_cuda.build`); a build or
   launch failure raises. X is passed in float64 and rounded to theta's
   dtype in the kernel.
@@ -21,11 +21,11 @@ Routes, chosen by the device of theta and nothing else:
   (`fused.se_cov_fused`, `fused.gibbs_tanh_cov_fused`) on X in theta's
   dtype.
 
-The per-dataset work is done once: `points` turns (X, nid) into float64
-points and int32 order ids, contiguous on their device, and keeps them
-while the same X and nid tensors come back unchanged (as every call of a
-model on one dataset passes them). A call then checks theta, allocates the
-output and launches; the four entry points are bound once.
+The per-dataset work can be done once: `points` turns (X, nid) into
+float64 points and int32 order ids, contiguous on their device, and
+`cov_vjp` takes them (a `GPModel` keeps a dataset's points beside it). A
+call then checks theta, allocates the output and launches; the four entry
+points are bound once.
 
 `se_cov_vjp` / `gibbs_tanh_cov_vjp` are differentiable in theta: the
 forward takes the route above, the backward runs autograd through the
@@ -70,8 +70,6 @@ LAUNCHES = {k: 0 for k in KINDS}
 PLAIN_CALLS = {k: 0 for k in KINDS}
 
 _FNS: dict = {}  # (kind, dtype) -> the bound entry point
-_POINTS: dict = {}  # (id(X), id(nid), orders) -> (X, nid, versions, CovPoints)
-_POINTS_MAX = 8
 
 
 def reset_counts() -> None:
@@ -96,28 +94,17 @@ class CovPoints(NamedTuple):
 def points(X: torch.Tensor, nid: torch.Tensor, multi_indices=None) -> CovPoints:
     """The kernel's points of X (N,) and nid (N,), or, with the dataset's
     ``multi_indices``, of its X (N, 1) and multi-index rows nid (their
-    order ids). Kept for the same X and nid tensors while neither changes
-    (their identity and version counters), up to 8 point sets."""
-    orders = None if multi_indices is None else tuple(tuple(m) for m in multi_indices)
-    key = (id(X), id(nid), orders)
-    hit = _POINTS.get(key)
-    if (hit is not None and hit[0] is X and hit[1] is nid
-            and hit[2] == (X._version, nid._version)):
-        return hit[3]
+    order ids)."""
     Xf, ids = X, nid
-    if orders is not None:
-        Xf, ids = X.reshape(-1), fused._order_ids(nid, orders)
+    if multi_indices is not None:
+        Xf, ids = X.reshape(-1), fused._order_ids(nid, multi_indices)
     if Xf.ndim != 1 or ids.shape != Xf.shape:
         raise ValueError(f"X and nid must be (N,), got {tuple(Xf.shape)} and "
                          f"{tuple(ids.shape)}")
     if Xf.device != ids.device:
         raise ValueError(f"X on {Xf.device}, nid on {ids.device}")
     X64, ids32 = Xf.to(torch.float64).contiguous(), ids.to(torch.int32).contiguous()
-    pts = CovPoints(X64, ids32, X64.device, X64.shape[0], X64.data_ptr(), ids32.data_ptr())
-    if len(_POINTS) >= _POINTS_MAX:
-        del _POINTS[next(iter(_POINTS))]
-    _POINTS[key] = (X, nid, (X._version, nid._version), pts)
-    return pts
+    return CovPoints(X64, ids32, X64.device, X64.shape[0], X64.data_ptr(), ids32.data_ptr())
 
 
 _DTYPES = (torch.float32, torch.float64)
@@ -190,15 +177,15 @@ def cov_cuda(kind: str, X: torch.Tensor, nid: torch.Tensor, theta: torch.Tensor)
 def layout(n: int, B: int, dtype: torch.dtype) -> dict:
     """The layout a launch at (N, B) in ``dtype`` takes, as the kernel
     library reports it (``gt_cov_layout``; builds the library): "small"
-    (a block per theta group, the image), "bands" (a block per 4 rows of a
-    theta, direct stores) or "tiles"; thetas a block, grid, threads and
-    shared bytes a block."""
-    info = (ctypes.c_int * 6)()
+    (a block per theta, the image), "bands" (a block per 4 rows of a
+    theta, direct stores) or "tiles"; grid, threads and shared bytes a
+    block."""
+    info = (ctypes.c_int * 5)()
     rc = evidence_cuda.library().gt_cov_layout(n, B, 8 if dtype == torch.float64 else 4, info)
     if rc != 0:
         raise ValueError(f"no covariance layout for N = {n}, B = {B}: cudaError {rc}")
-    return dict(zip(("layout", "thetas_per_block", "grid_x", "grid_yz", "threads",
-                     "smem_bytes"), info), layout=("small", "tiles", "bands")[info[0]])
+    return dict(zip(("layout", "grid_x", "grid_yz", "threads", "smem_bytes"), info),
+                layout=("small", "tiles", "bands")[info[0]])
 
 
 def _route(kind: str, pts: CovPoints, theta: torch.Tensor):

@@ -400,7 +400,8 @@ def fused_supported(kernel, multi_indices, num_dim) -> bool:
     return classify_flagship(kernel) is not None
 
 
-def flagship_cov(kernel, theta, X, nid, multi_indices, backend: str = "fused"):
+def flagship_cov(kernel, theta, X, nid, multi_indices, backend: str = "fused",
+                 points=None):
     """Fused K over one point set for a classified kernel: theta (P,) or
     (B, P) -> (N, N) or (B, N, N).
 
@@ -408,7 +409,9 @@ def flagship_cov(kernel, theta, X, nid, multi_indices, backend: str = "fused"):
     (the covariance kernel `ops.cov_cuda` forward, the fused build as its
     backward; on a CPU tensor the kernel's plain version). The kernel
     exists for the SE and Gibbs-tanh kinds only; other kinds take the
-    fused build, as in the reference."""
+    fused build, as in the reference. ``points``: the kernel's
+    `cov_cuda.points` of (X, nid, multi_indices), made once by the caller
+    that keeps the dataset; made here when None."""
     from gptools_tpu_torch.ops.kernels import GibbsKernel, TanhWarp
 
     if isinstance(kernel, GibbsKernel) and type(kernel.warp) is not TanhWarp:
@@ -424,8 +427,9 @@ def flagship_cov(kernel, theta, X, nid, multi_indices, backend: str = "fused"):
     if backend == "pallas" and kind in ("se", "gibbs_tanh") and input_warp is None:
         from gptools_tpu_torch.ops import cov_cuda
 
-        # the points and order ids are prepared once per dataset
-        return cov_cuda.cov_vjp(kind, cov_cuda.points(X, nid, multi_indices), theta)
+        if points is None:
+            points = cov_cuda.points(X, nid, multi_indices)
+        return cov_cuda.cov_vjp(kind, points, theta)
     ids = _order_ids(nid, multi_indices)
     Xt = X.reshape(-1).to(theta.dtype)
     if input_warp is not None:

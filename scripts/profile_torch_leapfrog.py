@@ -20,9 +20,20 @@ that the warp team reads clock64() after every phase of the chain body
 at the config's chains and at 1024 (the SMC particles); SM clock
 cycles per phase (the Cholesky summed over its steps).
 
+With ``--cov``, instead, where one covariance-kernel call (`ops.cov_cuda`)
+spends its time, from the same phase-clock library: for configs 4
+(gibbs_tanh, N = 27) and 2 (se, N = 32) at theta batch B = 1 and 512 (the
+serving states) and at (B, N) = (256, 1024) (1022 points), float64, the SM
+clock cycles from a block's start to the end of each of its phases and
+barriers, for the grid's first and last blocks, and the global timer from
+the first block's start to the last block's end (ns; the SMs' clocks are
+not each other's). Its times per launch and per call are phase 3b's of
+`chip_smoke.py`.
+
     python scripts/profile_torch_leapfrog.py                # configs 4 2 3
     python scripts/profile_torch_leapfrog.py --configs 3 --steps 100
     python scripts/profile_torch_leapfrog.py --phases
+    python scripts/profile_torch_leapfrog.py --cov
 
 Prints the card line and one JSON object per config (and per phase run).
 Needs a CUDA device.
@@ -39,6 +50,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 CHAINS = {4: 12288, 2: 4096, 3: 4096}
+# covariance kernel: (config, n_points or None for the config's own, B)
+COV_SHAPES = ((4, None, 1), (4, None, 512), (2, None, 1), (2, None, 512), (4, 1022, 256),
+              (2, 1022, 256))
+COV_PHASES = {
+    "small": ("points", "barrier", "pairs", "barrier", "store", "barrier"),
+    "bands": ("points", "barrier", "pairs"),
+    "tiles": ("points", "barrier", "entries", "barrier", "store", "barrier"),
+}
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
@@ -158,6 +177,8 @@ def phase_library():
                     *(str(ec._CSRC / u) for u in ec._UNITS)], check=True, capture_output=True)
     lib = ec.bind(ctypes.CDLL(str(so)))
     lib.gt_phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.gt_cov_phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    lib.gt_cov_phase_clocks.restype = ctypes.c_int
     return lib
 
 
@@ -206,6 +227,52 @@ def kernel_phases(config, C, lib, card, dev):
     }
 
 
+def cov_phases(config, n_points, B, lib, card, dev):
+    """SM cycles per phase of the first and last blocks of one float64
+    covariance-kernel call at (B, N), and the global span (ns)."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke as cs
+    from gptools_tpu_torch import configs
+    from gptools_tpu_torch.ops import cov_cuda
+    from gptools_tpu_torch.ops import evidence_cuda as ec
+
+    kind = cs.COV_KIND_OF[config]
+    kw = {} if n_points is None else {"n_points": n_points}
+    prob = configs.ALL_CONFIGS[config](dtype=torch.float64, device=dev, **kw)
+    X, nid = prob.data.Xf.reshape(-1), prob.data.nid
+    th = cs.posterior_draws(config, B, torch.float64, dev, seed=B)
+    real, fns = ec._LIB, dict(cov_cuda._FNS)
+    ec._LIB = lib
+    cov_cuda._FNS.clear()
+    try:
+        cov_cuda.cov_cuda(kind, X, nid, th)
+        torch.cuda.synchronize()
+        if lib.gt_cov_phase_clocks(None, None, 1) != 0:
+            raise RuntimeError("gt_cov_phase_clocks reset failed")
+        cov_cuda.cov_cuda(kind, X, nid, th)
+        torch.cuda.synchronize()
+        layout = cov_cuda.layout(X.shape[0], B, torch.float64)
+    finally:
+        ec._LIB = real
+        cov_cuda._FNS.clear()
+        cov_cuda._FNS.update(fns)
+    clk = (ctypes.c_longlong * 16)()
+    gtime = (ctypes.c_ulonglong * 4)()
+    if lib.gt_cov_phase_clocks(clk, gtime, 0) != 0:
+        raise RuntimeError("gt_cov_phase_clocks read failed")
+    names = COV_PHASES[layout["layout"]]
+    row = {"kind": kind, "B": B, "N": X.shape[0], "dtype": "float64", "layout": layout}
+    for r, tag in ((0, "first_block"), (1, "last_block")):
+        marks = [clk[8 * r + k] for k in range(len(names) + 1)]
+        row[tag] = {f"{k + 1}_{name}": marks[k + 1] - marks[0] for k, name in enumerate(names)}
+    row["first_start_to_last_end_ns"] = int(gtime[3]) - int(gtime[0])
+    row["card"] = card
+    return row
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", type=int, nargs="*", default=[4, 2, 3])
@@ -213,6 +280,8 @@ def main():
     ap.add_argument("--prof-steps", type=int, default=20)
     ap.add_argument("--phases", action="store_true",
                     help="also the evidence kernel's cycles per phase")
+    ap.add_argument("--cov", action="store_true",
+                    help="instead, the covariance kernel's cycles per phase")
     args = ap.parse_args()
 
     import torch
@@ -223,6 +292,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(card)
+    if args.cov:
+        lib = phase_library()
+        for config, n_points, B in COV_SHAPES:
+            print(json.dumps(cov_phases(config, n_points, B, lib, card,
+                                        torch.device("cuda", 0))), flush=True)
+        return 0
     for c in args.configs:
         row = profile_config(c, args.steps, args.prof_steps, card, torch.device("cuda", 0))
         print(json.dumps(row), flush=True)

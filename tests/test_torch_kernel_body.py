@@ -7,9 +7,10 @@ gradients (held to autograd at 1e-10); the host build runs its 32 lanes
 phase by phase, in order 0..31 and, for the lane-order test, 31..0, which
 must give the same bits. `cov_entry.cuh` holds the covariance kernel's
 per-point and per-entry functions (held to the fused single-theta builders
-at 1e-12) and its two layouts (a block per theta group for N <= 64,
+at 1e-12) and its three layouts (a block per theta for N <= 64, a block
+per 4 rows of a theta for N <= 32 when the thetas do not fill the card,
 64 x 64 tiles above) as functions of the thread index, whose host build
-runs every phase's 256 threads in both orders and must give the same bits,
+runs every phase's threads in both orders and must give the same bits,
 an exactly symmetric K and the plain version's entries.
 `evidence_chain_host.cpp` builds both with the host C++ compiler. Skips
 when no C++ compiler is installed.
@@ -298,13 +299,14 @@ def test_body_lane_order_is_bitwise_invariant(body, kind, where):
         np.testing.assert_array_equal(fwd[2][k], rev[2][k], err_msg=k)
 
 
-# ---- the covariance kernel: both layouts, thread by thread -------------------
+# ---- the covariance kernel: every layout, thread by thread -------------------
 
 
 def _cov_host(host_lib, kind, dtype, reversed=False, sms=132):
     """The host build of the kernel's launch on a card of ``sms``
-    multiprocessors (132, an H100: few thetas take one round of pairs a
-    block; 1: every theta group fills it, blocks of 256 threads)."""
+    multiprocessors (132, an H100: B < 132 thetas at n <= 32 take the
+    bands; 1: every B fills the card, so n <= 64 takes a block per
+    theta)."""
     fn = getattr(host_lib, f"gt_{kind}_cov_host_{'rev_' if reversed else ''}{dtype}")
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
@@ -369,7 +371,7 @@ def test_cov_entries_match_plain(host_lib, kind):
     assert (out[:, bad, :] == 0).all() and (out[:, :, bad] == 0).all()
 
 
-# n: one point; 2 and 7 (several thetas a block); the serving 27 and 32;
+# n: one point; 2 and 7, fewer pairs than a block's threads; the serving 27 and 32;
 # 31 and 33 around a warp; 63 and 64, the last of the small layout; 65
 # and 130, tiles with a ragged edge of 1 and 2
 COV_SIZES = [1, 2, 7, 27, 31, 32, 33, 63, 64, 65, 130]
@@ -380,11 +382,10 @@ COV_SIZES = [1, 2, 7, 27, 31, 32, 33, 63, 64, 65, 130]
 @pytest.mark.parametrize("n", COV_SIZES)
 @pytest.mark.parametrize("kind", ["se", "gibbs_tanh"])
 def test_cov_layout_thread_order_and_plain(host_lib, kind, n, B, dtype):
-    """The kernel's layout for this n (small up to 64, tiles above), its
+    """The kernel's layout for this n and B (bands, small or tiles), its
     threads run 0..nt-1 and nt-1..0 in every phase on NaN-filled shared
-    memory, with the small layout's blocks sized for an H100 (one round
-    of pairs) and for a card the groups fill (256 threads): the same bits
-    in all four runs, every entry written (no NaN; nothing written around
+    memory, on an H100's 132 SMs (bands at n <= 32) and on a card of 1
+    (a block per theta): the same bits in all four runs, every entry written (no NaN; nothing written around
     the output), the whole matrix exactly symmetric, ids outside {0, 1}
     exact zeros, and K within 1e-12 (float64) / 1e-5 (float32, the plain
     version rounds X to float32 first) of max |K| of the plain version.

@@ -290,6 +290,32 @@ def test_surface_matches_jax(surface, backend):
                                        err_msg=f"{s['name']} {backend} n={n}")
 
 
+@pytest.mark.parametrize("config", [4, 2])
+def test_pallas_backend_makes_points_once_per_dataset(config):
+    """A `GPModel` on the "pallas" backend makes the covariance kernel's
+    points of its dataset once: every covariance of the same `Dataset`
+    (a batch and a single theta) reuses them, another `Dataset` gets its
+    own, and K is the fused backend's at 1e-12."""
+    from gptools_tpu_torch import configs
+    from gptools_tpu_torch.models.gp import GPModel
+
+    prob = configs.ALL_CONFIGS[config](dtype=torch.float64, device="cpu")
+    model = GPModel(prob.model.kernel, cov_backend="pallas")
+    fused_model = GPModel(prob.model.kernel, cov_backend="fused")
+    th = model._initial(torch.zeros((), dtype=torch.float64))
+    K1 = model._latent_cov(th, prob.data, False)
+    data, pts = model._points_cache
+    assert data is prob.data and pts.n == prob.data.num_obs
+    K2 = model._latent_cov(torch.stack([th, th]), prob.data, False)
+    assert model._points_cache[1] is pts
+    ref = fused_model._latent_cov(th, prob.data, False)
+    np.testing.assert_allclose(K1.numpy(), ref.numpy(), rtol=1e-12, atol=1e-14)
+    np.testing.assert_array_equal(K2[1].numpy(), K1.numpy())
+    other = configs.ALL_CONFIGS[config](dtype=torch.float64, device="cpu").data
+    model._latent_cov(th, other, False)
+    assert model._points_cache[0] is other and model._points_cache[1] is not pts
+
+
 def test_theta_batch_matches_single_theta(surface):
     """A (3, P) theta batch, where the reference vmaps: one batched call of
     each method equals the single-theta calls (themselves held to the
