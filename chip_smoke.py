@@ -36,7 +36,9 @@ Phases (any failure raises and exits non-zero; no phase falls back):
    predictor's ``max_samples``; the kernel's small layout), and both kinds
    at (B, N) = (16, 1001) (the configs at 999 points: tiles with a ragged
    edge and rows off 16-byte boundaries) and (256, 1024) (at 1022 points);
-   thetas from the golden posteriors. Gates: float64 max |dK| / max |K|
+   and gibbs_tanh at config 5's served shapes, (512, 47) and (1, 47), on
+   its 47 latent points; thetas from the golden posteriors. Gates:
+   float64 max |dK| / max |K|
    <= 1e-12, float32 <= 1e-5; the whole matrix exactly symmetric (K ==
    K^T, every block). Per shape the layout the launch took, CUDA-event
    times per call of kernel (with the points made once, as a `GPModel`
@@ -44,16 +46,32 @@ Phases (any failure raises and exits non-zero; no phase falls back):
    (torch.profiler; and a CUDA graph of 20 launches), the wrapper's host
    time per call (CPU clock around 200 calls) with the points made once
    and with them made each call (``cov_cuda``), and the kernel's bound.
+3c. the route on the card, float64: config 4 at 60 points (N = 62, past
+   the kernel's N_MAX) at C = 256 must take the chains-minor route (route
+   calls > 0, no launch, no plain call), its ll within 1e-9 and its
+   gradient within 1e-9 / 1e-9 of the same model on the CPU; the N = 48
+   se_noise model must take the kernel under ``evidence_backend`` "auto"
+   and "fused_pallas" and the route under "xla", the route within 1e-9 (ll)
+   and 1e-7 / 1e-9 (gradient) of the kernel; ms per call of each.
 4. main paths in float32, each with the launch counts set to 0 just before
    and read just after: config 4 through ``smc_then_chees`` at 12288 chains
    (75 warmup + 300 samples), configs 2 and 3 at 4096 chains (100 + 500);
    1024 particles, max_steps 256. Every gradient must go through the kernel
-   (its launch count up, plain-version calls 0); quality gates R-hat <= 1.1,
-   divergences <= 1e-3 of draws; the golden rule is reported, not gated.
+   (its launch count up, plain-version calls 0, route calls 0); quality
+   gates R-hat <= 1.1, divergences <= 1e-3 of draws; the golden rule is
+   reported, not gated.
 5. the same pipelines in float64, with the same gates and the posterior
    moments held to tests/golden_config{4,2,3}.json by the rule of
-   scripts/f32_parity.py (why not in float32: see the comment at phase 5).
-6. serving, configs 4 and 2 in float64, the covariance kernel's main path,
+   scripts/f32_parity.py (why not in float32: see the comment at phase 5);
+   then config 5 (1024 chains, 100 + 300; its transformed observation
+   sends the evidence to the route: route calls > 0, no launch, no plain
+   call) with the same gates and tests/golden_config5.json; config 5's
+   host wall and device time per leapfrog; and ``summarize_samples`` of
+   config 4's float64 draws on the card and on the host (the native
+   library), which must agree within 1e-6 in ESS and R-hat.
+6. serving, configs 4, 2, 3 and 5 in float64, the covariance kernel's main
+   path (config 3, a warped Matern, has no covariance kind: its pallas
+   backend takes the fused build and launches nothing),
    with its launch counts set to 0 just before and read just after: from
    phase 5's posterior draws, a ``FrozenMCMCPredictor`` (``max_samples``
    512) and a ``FrozenPredictor`` at the posterior mean on
@@ -112,7 +130,10 @@ COV_REPLACES = "gptools_tpu/ops/pallas_cov.py:98"
 # outside {0, 1} cost nothing), and of the per-point tanh warp
 COV_FLOPS = {"se": (9, 12, 12, 12), "gibbs_tanh": (15, 35, 35, 58)}
 COV_POINT_FLOPS = {"se": 0, "gibbs_tanh": 13}
-COV_KIND_OF = {4: "gibbs_tanh", 2: "se"}
+# the covariance kernel's kind of each served config; config 3 (a warped
+# Matern) has none and takes the fused build on the pallas backend, as in
+# the reference
+COV_KIND_OF = {4: "gibbs_tanh", 2: "se", 3: None, 5: "gibbs_tanh"}
 SERVE_REQUESTS = 20
 SERVE_POINTS = 200
 SERVE_MAX_SAMPLES = 512
@@ -121,9 +142,14 @@ SERVE_BUILDS = 5
 # path's, 1000, and two that fill no block of 4 warps, 1 and 1023)
 PATHS = {4: (12288, 75, 300, (12288, 1000, 1, 1023)),
          2: (4096, 100, 500, (4096, 1000, 1, 1023)),
-         3: (4096, 100, 500, (4096, 1000, 1, 1023))}
+         3: (4096, 100, 500, (4096, 1000, 1, 1023)),
+         5: (1024, 100, 300, ())}
 SMC_PARTICLES = 1024  # the SMC rounds' C; timed beside the main paths' C
-KIND_OF = {4: "gibbs_tanh", 2: "se", 3: "matern52"}
+# the evidence kernel's kind of each pipeline; config 5's transformed
+# observation (T) sends its evidence to the route, as in the reference
+KIND_OF = {4: "gibbs_tanh", 2: "se", 3: "matern52", 5: None}
+ROUTE_N_POINTS = 60  # config 4 at 60 points: N = 62 > N_MAX, the route on the card
+ROUTE_C = 256
 
 
 def fail(msg):
@@ -434,7 +460,10 @@ def golden_rule(config, th, ess):
 
 def run_pipeline(config, dtype, dev, card, enforce_golden):
     """One config through smc_then_chees on the card; its evidence must go
-    through its kernel alone. Returns that kernel's launch count and the
+    through its kernel alone (configs 4, 2, 3: launches > 0, no plain call,
+    no route call), or through the route alone where the kernel does not
+    apply (config 5: route calls > 0, no launch, no plain call). Returns
+    that kernel's launch count (the route calls for config 5) and the
     draws, thetas (chains, samples, P)."""
     import torch
 
@@ -460,10 +489,17 @@ def run_pipeline(config, dtype, dev, card, enforce_golden):
     wall = time.perf_counter() - t0
     launches = dict(evidence_cuda.LAUNCHES)
     plain_calls = sum(evidence_cuda.PLAIN_CALLS.values())
+    routes = dict(evidence_cuda.ROUTE_CALLS)
     print(f"{tag}: evidence kernel launches {launches}, plain-version calls "
-          f"{plain_calls}")
-    if launches[kind] <= 0 or plain_calls != 0:
-        fail(f"{tag}: the main path did not run through the {kind} kernel alone")
+          f"{plain_calls}, route calls {routes}")
+    if kind is None:
+        if routes["chains_minor"] <= 0 or sum(launches.values()) or plain_calls:
+            fail(f"{tag}: the evidence did not run through the chains-minor route alone")
+        count = routes["chains_minor"]
+    else:
+        if launches[kind] <= 0 or plain_calls != 0 or sum(routes.values()):
+            fail(f"{tag}: the main path did not run through the {kind} kernel alone")
+        count = launches[kind]
 
     th = res.thetas
     P = prob.model.num_params
@@ -494,7 +530,7 @@ def run_pipeline(config, dtype, dev, card, enforce_golden):
           f" -> {verdict}")
     if enforce_golden and not ok:
         fail(f"{tag}: posterior moments disagree with tests/golden_config{config}.json")
-    return launches[kind], th
+    return count, th
 
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
@@ -613,8 +649,9 @@ def cov_parity(kind, X, nid, thetas, card, time_plain_reps=30):
 
 def serve(config, thetas, dev, card):
     """Phase 6 for one config: the pallas-backend predictors on phase 5's
-    draws, gated on the covariance kernel's launches, held to the fused
-    backend. Returns the kernel's launch count."""
+    draws, gated on the covariance kernel's launches (config 3, which has
+    no kind, on none), held to the fused backend. Returns the kernel's
+    launch count."""
     import torch
 
     from gptools_tpu_torch import configs
@@ -627,7 +664,9 @@ def serve(config, thetas, dev, card):
     draws = thetas.reshape(-1, prob.model.num_params).double()
     lo, hi = float(prob.data.Xf.min()), float(prob.data.Xf.max())
     grid = np.linspace(lo, hi, SERVE_POINTS)
-    models = {b: GPModel(prob.model.kernel, cov_backend=b) for b in ("pallas", "fused")}
+    pm = prob.model
+    models = {b: GPModel(pm.kernel, noise_kernel=pm.noise_kernel, mean=pm.mean, cov_backend=b)
+              for b in ("pallas", "fused")}
     for model in models.values():  # one untimed build and request each (first-call costs)
         FrozenMCMCPredictor(model, prob.data, draws, max_samples=SERVE_MAX_SAMPLES)(grid)
     answers, times = {}, {}
@@ -666,10 +705,16 @@ def serve(config, thetas, dev, card):
               f"max {max(req_ms):.3f} ms; covariance-kernel launches {launches}, "
               f"plain-version calls {plain_calls} ({card})")
         if backend == "pallas":
-            if launches[kind] <= 0 or plain_calls != 0:
+            if kind is None:
+                if sum(launches.values()) or plain_calls:
+                    fail(f"config{config}: a kernel without a covariance kind launched "
+                         f"the covariance kernel")
+                pallas_launches = 0
+            elif launches[kind] <= 0 or plain_calls != 0:
                 fail(f"config{config}: the serving states did not go through the "
                      f"{kind} covariance kernel alone")
-            pallas_launches = launches[kind]
+            else:
+                pallas_launches = launches[kind]
     # |a - b| <= 1e-9 |b| + 1e-12 max|b| on every answer; worst ratio printed
     worst = 0.0
     for a_req, b_req in zip(answers["pallas"], answers["fused"]):
@@ -689,6 +734,160 @@ def serve(config, thetas, dev, card):
         print(f"phase6 config4: {100 * inside.mean():.1f}% of the true profile lies "
               f"within +-2 predictive std of the MCMC predictor (reported, not gated)")
     return pallas_launches
+
+
+def grad_call(model, data, thetas):
+    """The batch evidence and its theta gradient (cotangent ones), as a
+    sampler asks for them: (ll (C,), grad (C, P))."""
+    import torch
+
+    t = thetas.detach().clone().requires_grad_(True)
+    ll = model.log_marginal_batch(t, data)
+    (g,) = torch.autograd.grad(ll.sum(), t)
+    return ll.detach(), g
+
+
+def close(a, b, rtol, atol):
+    """max(|a - b| - (atol + rtol |b|)), which must be <= 0."""
+    return float(((a - b).abs() - (atol + rtol * b.abs())).max())
+
+
+def route_phase(dev, card):
+    """Phase 3c: the route on the card in float64. Config 4 at N = 62 (past
+    N_MAX) takes the chains-minor route, with the CPU's numbers; the N = 48
+    se_noise model takes the kernel under evidence_backend "auto" and
+    "fused_pallas" and the route under "xla", with the kernel's numbers.
+    Returns the route's ms per call at N = 62."""
+    import torch
+
+    from gptools_tpu_torch import configs
+    from gptools_tpu_torch.models.gp import GPModel
+    from gptools_tpu_torch.ops import evidence_cuda as ec
+
+    big = configs.config4_gibbs_smc(n_points=ROUTE_N_POINTS, dtype=torch.float64, device=dev)
+    cpu = configs.config4_gibbs_smc(n_points=ROUTE_N_POINTS, dtype=torch.float64,
+                                    device="cpu")
+    th = posterior_draws(4, ROUTE_C, torch.float64, dev, seed=62)
+    ec.reset_counts()
+    ll, g = grad_call(big.model, big.data, th)
+    torch.cuda.synchronize()
+    routes, launches = dict(ec.ROUTE_CALLS), dict(ec.LAUNCHES)
+    plain = sum(ec.PLAIN_CALLS.values())
+    llc, gc = (v.to(dev) for v in grad_call(cpu.model, cpu.data, th.cpu()))
+    ll_m, g_m = close(ll, llc, 1e-9, 0.0), close(g, gc, 1e-9, 1e-9)
+    t_route = cuda_ms(lambda: grad_call(big.model, big.data, th), reps=20)
+    n = big.data.num_obs
+    print(f"phase3c config4 N={n} C={ROUTE_C} f64: route calls {routes}, kernel launches "
+          f"{launches}, plain calls {plain}; card vs CPU: ll max |d| - 1e-9|ll| = {ll_m:.3e}, "
+          f"grad max |d| - (1e-9 + 1e-9|g|) = {g_m:.3e} (each must be <= 0); route "
+          f"{t_route:.4f} ms per call (ll and gradient; median of 20, CUDA events; {card})")
+    if (routes["chains_minor"] <= 0 or sum(launches.values()) or plain
+            or not ll_m <= 0.0 or not g_m <= 0.0):
+        fail(f"phase3c: config 4 at N = {n} did not take the route with the CPU's numbers")
+
+    (_, m48, d48), = [v for v in variant_problems(dev) if v[0] == "se_noise_n48"]
+    th48 = torch.tensor(np.random.default_rng(SEED).uniform(0.4, 1.2, (1023, m48.num_params)),
+                        device=dev)
+    outs, times = {}, {}
+    for backend in ("auto", "fused_pallas", "xla"):
+        m = GPModel(m48.kernel, noise_kernel=m48.noise_kernel, evidence_backend=backend)
+        ec.reset_counts()
+        outs[backend] = grad_call(m, d48, th48)
+        torch.cuda.synchronize()
+        launches, routes = dict(ec.LAUNCHES), dict(ec.ROUTE_CALLS)
+        plain = sum(ec.PLAIN_CALLS.values())
+        times[backend] = cuda_ms(lambda: grad_call(m, d48, th48), reps=20)
+        want_kernel = backend != "xla"
+        took = ("kernel" if launches["se"] == 1 and not sum(routes.values()) else
+                "route" if routes["chains_minor"] == 1 and not sum(launches.values()) else
+                "neither")
+        print(f"phase3c se_noise_n48 C=1023 f64 evidence_backend={backend!r}: launches "
+              f"{launches}, route calls {routes}, plain calls {plain} -> {took}; "
+              f"{times[backend]:.4f} ms per call (ll and gradient; median of 20, CUDA "
+              f"events; {card})")
+        if plain or took != ("kernel" if want_kernel else "route"):
+            fail(f"phase3c: evidence_backend {backend!r} took the wrong route")
+    (llk, gk), (llr, gr) = outs["auto"], outs["xla"]
+    ll_m, g_m = close(llr, llk, 1e-9, 0.0), close(gr, gk, 1e-7, 1e-9)
+    print(f"phase3c se_noise_n48: route vs kernel ll max |d| - 1e-9|ll| = {ll_m:.3e}, grad "
+          f"max |d| - (1e-9 + 1e-7|g|) = {g_m:.3e} (each must be <= 0); route "
+          f"{times['xla']:.4f} ms against the kernel's {times['auto']:.4f} ms per call")
+    if not ll_m <= 0.0 or not g_m <= 0.0:
+        fail("phase3c: the route and the kernel disagree at N = 48")
+    return t_route
+
+
+def leapfrog_wall(config, dtype, dev, card, steps=50):
+    """Host wall and device time per leapfrog step of a config's density
+    at its pipeline's chains, on golden-typical points (identity mass,
+    step 0.01), as scripts/profile_torch_leapfrog.py times configs 4, 2
+    and 3."""
+    import torch
+
+    from gptools_tpu_torch import configs
+    from gptools_tpu_torch.infer import chees, hmc
+
+    prob = configs.ALL_CONFIGS[config](dtype=dtype, device=dev)
+    model, data = prob.model, prob.data
+    C = PATHS[config][0]
+    q = model.u_of_theta(posterior_draws(config, C, dtype, dev, seed=11))
+    vg = chees._value_and_grad(lambda u: model.log_posterior_u_batch(u, data))
+    inv_mass = torch.ones(q.shape[1], dtype=dtype, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = torch.randn(q.shape, generator=gen, dtype=dtype, device=dev)
+    eps = torch.tensor(0.01, dtype=dtype, device=dev)
+    state = {}
+
+    def step():
+        state["q"], state["p"], _, state["g"] = hmc.leapfrog(
+            vg, state["q"], state["p"], eps, inv_mass, grad=state["g"])
+
+    with torch.no_grad():
+        state.update(q=q, p=p, g=vg(q)[1])
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+        dev_us, n_launch = profiled(step, 10)
+    busy_ms = 1e-3 * sum(dev_us.values())
+    print(f"phase5 config{config} {str(dtype).replace('torch.', '')} C={C}: host wall "
+          f"{wall_ms:.3f} ms per leapfrog ({steps} steps, no profiler); device busy "
+          f"{busy_ms:.3f} ms per step ({100 * busy_ms / wall_ms:.1f}% of the wall), "
+          f"{n_launch:.0f} kernel launches per step (torch.profiler, 10 steps; {card})")
+    return wall_ms
+
+
+def diagnostics_phase(th, names, card):
+    """`summarize_samples` of float64 draws on the card and through its host
+    path (the native library); gated on finite values and on the two paths
+    agreeing within 1e-6 relative in ESS and R-hat."""
+    import torch
+
+    from gptools_tpu_torch.utils.diagnostics import summarize_samples
+
+    out = {}
+    for where, s in (("card", th), ("host", th.cpu())):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[where] = summarize_samples(s, param_names=names)
+        out[where]["seconds"] = time.perf_counter() - t0
+        row = {k: np.round(np.asarray(out[where][k], dtype=float), 5).tolist()
+               for k in ("mean", "std", "q05", "q50", "q95", "ess", "rhat")}
+        print(f"diagnostics {where}: summarize_samples of {tuple(th.shape)} "
+              f"{str(th.dtype).replace('torch.', '')} draws in "
+              f"{out[where]['seconds']:.3f} s: {row} ({card})")
+    rel = {k: float(np.max(np.abs(out["card"][k] / out["host"][k] - 1.0)))
+           for k in ("ess", "rhat", "mean", "std", "q50")}
+    print(f"diagnostics: card vs host, largest relative difference {rel} (ESS and R-hat "
+          f"must be <= 1e-6)")
+    finite = all(np.isfinite(np.asarray(out[w][k], dtype=float)).all()
+                 for w in out for k in ("mean", "std", "ess", "rhat"))
+    if not finite or not rel["ess"] <= 1e-6 or not rel["rhat"] <= 1e-6:
+        fail("diagnostics: card and host summaries disagree or are not finite")
 
 
 KIND_IDS = {"0": "gibbs_tanh", "1": "se", "2": "matern52"}
@@ -875,6 +1074,17 @@ def main():
             del big, res
             torch.cuda.empty_cache()
         cov_table[k]["max_abs_err"] = max(errs)  # float64, as the row's times
+    # config 5's served states: its 47 latent points (odd: every other
+    # float64 row starts off a 16-byte boundary), thetas from its golden
+    prob5 = configs.config5_multihost_profile(dtype=torch.float64, device=dev)
+    for B in (1, SERVE_MAX_SAMPLES):
+        res = cov_parity("gibbs_tanh", prob5.data.Xf.reshape(-1), prob5.data.nid,
+                         posterior_draws(5, B, torch.float64, dev, seed=B), card)
+        row = cov_table["gibbs_tanh"]
+        row["max_abs_err"] = max(row["max_abs_err"], res[torch.float64][0])
+
+    # ---- phase 3c: the route on the card ---------------------------------
+    route_phase(dev, card)
 
     # ---- phase 4: main paths (float32, as the reference's bench) ---------
     for config in (4, 2, 3):
@@ -888,15 +1098,23 @@ def main():
     # runs on its TPU show it at 512 chains (BASELINE.md, z -2.7 to -3.3),
     # and at 12288 chains the run's own standard error is small enough that
     # the shift exceeds 4 of the golden's standard errors. The goldens are
-    # float64 posteriors, so their rule is held in float64.
+    # float64 posteriors, so their rule is held in float64. Config 5 (1024
+    # chains, 100 + 300, the reference's protocol uncut) runs here only; its
+    # evidence takes the route (T present), as in the reference.
     draws = {}
-    for config in (4, 2, 3):
+    for config in (4, 2, 3, 5):
         _, draws[config] = run_pipeline(config, torch.float64, dev, card,
                                         enforce_golden=True)
+    leapfrog_wall(5, torch.float64, dev, card)
+    diagnostics_phase(draws[4], configs.config4_gibbs_smc(device=dev).model.param_names,
+                      card)
 
     # ---- phase 6: serving through the covariance kernel ------------------
-    for config in (4, 2):
-        cov_table[COV_KIND_OF[config]]["launches"] = serve(config, draws[config], dev, card)
+    launches = {}
+    for config in (4, 2, 3, 5):
+        launches[config] = serve(config, draws[config], dev, card)
+    cov_table["gibbs_tanh"]["launches"] = launches[4] + launches[5]
+    cov_table["se"]["launches"] = launches[2]
 
     print(card)
     print(json.dumps({"kernels": [{

@@ -1,12 +1,15 @@
-"""Benchmark configurations 2, 3 and 4.
+"""Benchmark configurations 2, 3, 4 and 5.
 
 Counterparts of `gptools_tpu.configs`: the same numpy data generation from
 the seed, the same priors and the same ``sampler`` / ``sampler_kwargs``
 metadata, built in a given dtype on the card unless the caller passes
 ``device="cpu"``. Config 2 is an SE GP with two slope constraints (N = 32),
 config 3 a BetaWarp-ed Matern-5/2 GP with a linear mean (N = 35), config 4
-the Gibbs-tanh pedestal fit (N = 27). Configs 1 and 5 are ROADMAP Queue 1
-item 15.
+the Gibbs-tanh pedestal fit (N = 27), config 5 the same model family with
+a line-integral observation (M = 32 observations of Q = 47 latent points,
+through the observation matrix T). The reference runs config 5's 1024
+chains sharded over a mesh; here they run on one card, with no mesh.
+Config 1 is ROADMAP Queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ __all__ = [
     "config2_se_deriv_nuts",
     "config3_matern_mean_warp_hmc",
     "config4_gibbs_smc",
+    "config5_multihost_profile",
     "ALL_CONFIGS",
 ]
 
@@ -171,8 +175,55 @@ def config4_gibbs_smc(
     )
 
 
+def config5_multihost_profile(
+    seed: int = 0,
+    n_points: int = 30,
+    dtype: torch.dtype = torch.float64,
+    device="cuda",
+) -> BaselineProblem:
+    """Tokamak-style profile fit with a line-integrated observation over
+    the chord (16 quadrature points, a dense row of T) and 1024 chains
+    through ``smc+chees``; the priors of config 4."""
+    from gptools_tpu_torch.models.dataset import DatasetBuilder
+    from gptools_tpu_torch.models.gp import GPModel
+    from gptools_tpu_torch.ops.kernels import GibbsKernel1dTanh
+    from gptools_tpu_torch.utils.priors import LogNormalJointPrior, UniformJointPrior
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.0, 1.2, n_points)
+    prof = _pedestal_profile(x)
+    err = 0.03
+    y = prof + err * rng.standard_normal(n_points)
+    b = DatasetBuilder(1)
+    b.add(x, y, err_y=err)
+    b.add(np.array([0.0]), np.array([0.0]), err_y=0.01, n=1)
+    xq = np.linspace(0.0, 1.2, 16)
+    w = np.full(16, 1.2 / 16)
+    true_integral = np.trapezoid(_pedestal_profile(xq), xq)
+    b.add(xq, y=[true_integral + 0.02 * rng.standard_normal()], T=w[None, :], err_y=0.02)
+    prior = (
+        LogNormalJointPrior([0.0], [0.75])
+        * LogNormalJointPrior([-1.0], [0.6])
+        * LogNormalJointPrior([-2.3], [0.6])
+        * LogNormalJointPrior([-2.3], [0.6])
+        * UniformJointPrior([0.6], [1.1])
+    )
+    return BaselineProblem(
+        name="config5_multihost_profile",
+        description="1024 chains on a tokamak-style profile fit with a "
+        "line-integral observation",
+        model=GPModel(GibbsKernel1dTanh(hyperprior=prior)),
+        data=b.build(dtype, dev),
+        sampler="smc+chees",
+        sampler_kwargs=dict(num_chains=1024, num_warmup=100, num_samples=300),
+        truth=dict(profile=prof, X=x, err=err, integral=true_integral),
+    )
+
+
 ALL_CONFIGS = {
     2: config2_se_deriv_nuts,
     3: config3_matern_mean_warp_hmc,
     4: config4_gibbs_smc,
+    5: config5_multihost_profile,
 }

@@ -31,17 +31,16 @@ def thetas_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def dataset_from_jax(data, dtype: torch.dtype, device) -> Dataset:
-    """A `gptools_tpu.models.dataset.Dataset` as a `Dataset` on ``device``."""
-    if getattr(data, "T", None) is not None:
-        raise NotImplementedError(
-            "transformed observations (T) are ROADMAP Queue 1 item 10"
-        )
+    """A `gptools_tpu.models.dataset.Dataset` as a `Dataset` on ``device``,
+    with its observation matrix T when it has one."""
+    T = getattr(data, "T", None)
     return Dataset(
         thetas_from_numpy(data.Xf, dtype, device),
         torch.tensor(np.asarray(data.nid, dtype=np.int32), device=device),
         thetas_from_numpy(data.y, dtype, device),
         thetas_from_numpy(data.err_y, dtype, device),
         data.multi_indices,
+        T=None if T is None else thetas_from_numpy(T, dtype, device),
     )
 
 
@@ -97,7 +96,7 @@ def _kernel_from_jax(k):
         return kernels.WarpedKernel(
             _kernel_from_jax(k.base), _warp_from_jax(k.input_warp), **_meta(k)
         )
-    raise NotImplementedError(f"{name} is ROADMAP Queue 1 items 10-11")
+    raise NotImplementedError(f"{name} is ROADMAP Queue 1 item 11")
 
 
 def _mean_from_jax(m):
@@ -109,10 +108,17 @@ def _mean_from_jax(m):
     return _MEANS[name](m.num_dim, **_meta(m))
 
 
+def _dtype_from_jax(dtype):
+    """A numpy-compatible dtype (the reference's ``solve_dtype``) as the
+    torch dtype of the same name; None stays None."""
+    return None if dtype is None else getattr(torch, np.dtype(dtype).name)
+
+
 def model_from_jax(model) -> GPModel:
     """A `gptools_tpu.models.gp.GPModel` as a `GPModel`: kernel, noise
     kernel and mean types, prior parts, initial and fixed parameters,
-    bounds, ``diag_factor`` and ``cov_backend``."""
+    bounds, ``diag_factor``, ``solve_dtype``, ``cov_backend`` and
+    ``evidence_backend``."""
     nk = getattr(model, "noise_kernel", None)
     mu = getattr(model, "mean", None)
     return GPModel(
@@ -120,5 +126,7 @@ def model_from_jax(model) -> GPModel:
         noise_kernel=None if nk is None else _kernel_from_jax(nk),
         mean=None if mu is None else _mean_from_jax(mu),
         diag_factor=model.diag_factor,
+        solve_dtype=_dtype_from_jax(getattr(model, "solve_dtype", None)),
         cov_backend=getattr(model, "cov_backend", "auto"),
+        evidence_backend=getattr(model, "evidence_backend", "auto"),
     )

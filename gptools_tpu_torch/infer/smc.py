@@ -136,7 +136,7 @@ def sample(
     thetas0 = model.hyperprior.sample(generator, (num_particles,), dtype).to(dev)
     u0 = model.u_of_theta(thetas0)
     # the initial sweep uses the batched likelihood (the reference's scalar
-    # per-particle path gives the same values; that surface is item 12)
+    # per-particle path gives the same values)
     state = SMCState(
         u=u0,
         log_like=log_like_b(u0),

@@ -2,8 +2,10 @@
 
 Counterpart of `gptools_tpu.models.dataset`. The builder stays numpy right up
 to ``build(dtype, device)``, which places the finished `Dataset` on an
-explicit device. Transformed (line-integral) observations, the ``T`` matrix
-of the reference, are ROADMAP Queue 1 item 10: ``add(..., T=...)`` raises.
+explicit device. Every observation is a linear functional of latent values
+``f_q = d^{n_q} f(X_q)``: ``y = T f``, with ``T`` None when every
+observation is direct (then M == Q) and otherwise the (M, Q) block-diagonal
+matrix of the reference (identity blocks for batches added without ``T``).
 """
 
 from __future__ import annotations
@@ -56,23 +58,29 @@ class Dataset:
     """Frozen observation set on one device.
 
     Attributes:
-      Xf: (Q, D) evaluation points.
+      Xf: (Q, D) latent evaluation points.
       nid: (Q,) int32 ids into ``multi_indices``.
-      y: (Q,) observed values.
-      err_y: (Q,) observation noise standard deviations.
+      y: (M,) observed values.
+      err_y: (M,) observation noise standard deviations.
       multi_indices: tuple of derivative multi-index tuples.
+      T: (M, Q) observation matrix, or None (identity; then M == Q).
     """
 
-    def __init__(self, Xf, nid, y, err_y, multi_indices):
+    def __init__(self, Xf, nid, y, err_y, multi_indices, T=None):
         self.Xf = Xf
         self.nid = nid
         self.y = y
         self.err_y = err_y
         self.multi_indices = tuple(tuple(m) for m in multi_indices)
+        self.T = T
 
     @property
     def num_obs(self) -> int:
         return self.y.shape[0]
+
+    @property
+    def num_latent(self) -> int:
+        return self.Xf.shape[0]
 
     @property
     def num_dim(self) -> int:
@@ -88,8 +96,9 @@ class Dataset:
 
     def __repr__(self):
         return (
-            f"Dataset(M={self.num_obs}, D={self.num_dim}, "
-            f"orders={self.multi_indices}, device={self.device})"
+            f"Dataset(M={self.num_obs}, Q={self.num_latent}, D={self.num_dim}, "
+            f"orders={self.multi_indices}, transformed={self.T is not None}, "
+            f"device={self.device})"
         )
 
 
@@ -103,6 +112,7 @@ class DatasetBuilder:
         self._mi: list = []
         self._y: list = []
         self._err: list = []
+        self._T: list = []  # per batch: (Mb, Qb) or None
 
     def _norm_X(self, X) -> np.ndarray:
         X = np.asarray(X, dtype=np.float64)
@@ -140,21 +150,29 @@ class DatasetBuilder:
 
     def add(self, X, y, err_y=0.0, n=0, T=None):
         """Append a batch: ``y[i]`` observes ``d^{n[i]} f(X[i])`` with noise
-        standard deviation ``err_y[i]``."""
-        if T is not None:
-            raise NotImplementedError(
-                "transformed observations (T) are ROADMAP Queue 1 item 10"
-            )
+        standard deviation ``err_y[i]``. With ``T`` (M, Q), ``X`` holds the Q
+        quadrature points and the batch observes ``y = T f(X)`` (M values),
+        e.g. line integrals."""
         X = self._norm_X(X)
         q = X.shape[0]
-        y = np.broadcast_to(np.asarray(y, dtype=np.float64), (q,)).copy()
-        err = np.broadcast_to(np.asarray(err_y, dtype=np.float64), (q,)).copy()
+        m = q
+        if T is not None:
+            T = np.asarray(T, dtype=np.float64)
+            if T.ndim == 1:
+                T = T.reshape(1, -1)
+            if T.shape[1] != q:
+                raise ValueError(f"T has {T.shape[1]} cols, X has {q} rows")
+            m = T.shape[0]
+        y = np.broadcast_to(np.asarray(y, dtype=np.float64), (m,)).copy()
+        err = np.broadcast_to(np.asarray(err_y, dtype=np.float64), (m,)).copy()
         if np.any(err < 0):
             raise ValueError("err_y must be >= 0")
+        mi = self._norm_n(n, q)
         self._X.append(X)
-        self._mi.extend(self._norm_n(n, q))
+        self._mi.extend(mi)
         self._y.append(y)
         self._err.append(err)
+        self._T.append(T)
         return self
 
     add_data = add
@@ -173,10 +191,22 @@ class DatasetBuilder:
         def t(a):
             return torch.as_tensor(a, dtype=dtype, device=device)
 
+        T = None
+        if any(b is not None for b in self._T):
+            sizes = [(x.shape[0] if b is None else b.shape[0], x.shape[0])
+                     for x, b in zip(self._X, self._T)]
+            T = np.zeros(tuple(map(sum, zip(*sizes))))
+            row = col = 0
+            for (mb, qb), b in zip(sizes, self._T):
+                T[row : row + mb, col : col + qb] = np.eye(qb) if b is None else b
+                row += mb
+                col += qb
+            T = t(T)
         return Dataset(
             t(np.concatenate(self._X, axis=0)),
             torch.as_tensor(nid, device=device),
             t(np.concatenate(self._y, axis=0)),
             t(np.concatenate(self._err, axis=0)),
             multi_indices,
+            T=T,
         )

@@ -13,19 +13,35 @@ Counterpart of `gptools_tpu.models.gp`, with its theta layout
   takes theta (P,), or a leading batch (B, P) where the reference
   ``vmap``s it.
 
-The batch evidence always goes through the evidence kernel
-(`ops.evidence_cuda`) under the reference's eligibility rules for its
-fused Pallas kernel (`_pallas_evidence_fn`): a classified kernel (SE,
-Matern-5/2, Gibbs-tanh, the stationary ones optionally under a BetaWarp /
-LinearWarp), any ported mean function, an optional `DiagonalNoiseKernel`
-whose rows are purely diagonal, 1-D data with orders {0, 1}. Only the
-kernel's base rows go to the kernel; the mean (``mu``), the noise variance
-(``nd``) and the warped coordinates (``w``, ``wp``) are computed here in
-torch and enter as aux channels, and autograd chains the kernel's aux
-cotangents through them. A CUDA `Dataset` takes the kernel (N <= its N_MAX
-or the call raises), a CPU `Dataset` its plain version. Outside those
-rules the reference falls back to its generic XLA path; the port raises
-`NotImplementedError` (ROADMAP Queue 1 item 10).
+The batch evidence (`log_marginal_batch`) resolves its route from the
+model and the data alone, before anything is launched, as the reference's
+``_pallas_evidence_fn`` does:
+
+- the evidence kernel (`ops.evidence_cuda`; on a CPU `Dataset` its plain
+  version) where the reference's eligibility rules for its fused Pallas
+  kernel hold: a classified kernel (SE, Matern-5/2, Gibbs-tanh, the
+  stationary ones optionally under a BetaWarp / LinearWarp), any ported
+  mean function, an optional `DiagonalNoiseKernel` whose rows are purely
+  diagonal, 1-D data with orders {0, 1}, N <= the kernel's N_MAX, no
+  transformed observations T and no ``solve_dtype``. Only the kernel's
+  base rows go to the kernel; the mean (``mu``), the noise variance
+  (``nd``) and the warped coordinates (``w``, ``wp``) are computed here in
+  torch and enter as aux channels, and autograd chains the kernel's aux
+  cotangents through them;
+- otherwise the route, the reference's XLA path written in torch: the
+  chains-minor twin (`fused.flagship_cov_soa`, any noise kernel through
+  `ops.assemble`, ``T K T^T``, `evidence.loglik_b`) for classified kernels
+  on 1-D data with orders {0, 1}, and the per-chain route (the batched
+  single-theta surface, in chunks) for every other kernel and for
+  multi-dimensional data. Each call is counted in
+  `evidence_cuda.ROUTE_CALLS`.
+
+``evidence_backend``: ``"auto"`` and ``"fused_pallas"`` take the kernel
+where it applies and the route otherwise; ``"xla"`` always takes the route.
+The reference's ``"auto"`` resolves to ``"xla"`` off a TPU; the port's
+keeps the kernel on the card. Both routes give the same numbers to 1e-9 in
+float64, so the choice moves time, not results. A kernel that fails to
+build or launch raises; nothing falls back.
 
 The single-theta covariance follows ``cov_backend`` as in the reference:
 ``"fused"`` (the fused builders), ``"pallas"`` (the covariance kernel
@@ -33,11 +49,12 @@ The single-theta covariance follows ``cov_backend`` as in the reference:
 Gibbs-tanh only, the other kinds take the fused build) or ``"generic"``
 (`ops.assemble`); ``"auto"`` resolves to ``"fused"``. Predictions build
 the star-data and star-star blocks with the generic assembly on every
-backend, as the reference does. `GaussianProcess` is the reference's
-stateful wrapper; `models.serve` holds the frozen predictors.
+backend, as the reference does. ``solve_dtype`` casts the observation
+covariance and the residual before the factorization. `GaussianProcess`
+is the reference's stateful wrapper; `models.serve` holds the frozen
+predictors.
 
-Not ported: ``solve_dtype`` (ROADMAP Queue 1 item 12), transformed
-observations T (item 10), ``optimize_hyperparameters`` (item 13).
+Not ported: ``optimize_hyperparameters`` (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -60,14 +77,17 @@ from gptools_tpu_torch.utils.bounds import CombinedBounds, MaskedBounds
 
 __all__ = ["GPModel", "GaussianProcess", "Prediction"]
 
-_GENERIC = "the generic assembly is ROADMAP Queue 1 item 10"
-
 # cov_backend="auto" resolves as the reference does (gptools_tpu/models/
 # gp.py:50), a choice the reference made from its own TPU measurement.
 # chip_smoke.py times both backends on the H100 (phase 6); change this only
 # on those numbers.
 _AUTO_COV_BACKEND = "fused"
 _COV_BACKENDS = ("auto", "generic", "fused", "pallas")
+_EVIDENCE_BACKENDS = ("auto", "xla", "fused_pallas")
+# The per-chain route evaluates at most this many covariance entries
+# (chains x Q^2) at once: its jvp towers keep several intermediates of that
+# size alive, so a sampler's C is taken in chunks of this budget.
+_PER_CHAIN_ENTRIES = 1 << 22
 
 
 class Prediction(NamedTuple):
@@ -97,6 +117,30 @@ class _EvidencePlan(NamedTuple):
     noise_mask: Optional[torch.Tensor]  # (N, 1) rows the noise applies to
 
 
+class _ChunkedVag(torch.autograd.Function):
+    """``fn`` over thetas (C, P) in chunks of rows -> (C,), each chunk's
+    value and gradient taken together in the forward; backward ``g * grad``
+    (first order only, as the evidence kernel)."""
+
+    @staticmethod
+    def forward(ctx, fn, chunk, thetas):
+        lls, grads = [], []
+        for t in thetas.split(chunk):
+            with torch.enable_grad():
+                t = t.detach().requires_grad_(True)
+                ll = fn(t)
+                (g,) = torch.autograd.grad(ll.sum(), t)
+            lls.append(ll.detach())
+            grads.append(g)
+        ctx.save_for_backward(torch.cat(grads))
+        return torch.cat(lls)
+
+    @staticmethod
+    def backward(ctx, g):
+        (grad,) = ctx.saved_tensors
+        return None, None, g[:, None] * grad
+
+
 class GPModel:
     """GP specification: kernel (+ noise kernel, + mean) with parameter
     metadata and batched densities.
@@ -114,21 +158,19 @@ class GPModel:
         diag_factor: float = 1e2,
         solve_dtype=None,
         cov_backend: str = "auto",
+        evidence_backend: str = "auto",
     ):
-        if noise_kernel is not None and type(noise_kernel) is not DiagonalNoiseKernel:
-            raise NotImplementedError(
-                f"noise kernel {type(noise_kernel).__name__}: only "
-                f"DiagonalNoiseKernel is ported; {_GENERIC}"
-            )
-        if solve_dtype is not None:
-            raise NotImplementedError("solve_dtype is ROADMAP Queue 1 item 12")
         if cov_backend not in _COV_BACKENDS:
             raise ValueError(f"unknown cov_backend {cov_backend!r}")
+        if evidence_backend not in _EVIDENCE_BACKENDS:
+            raise ValueError(f"unknown evidence_backend {evidence_backend!r}")
         self.kernel = kernel
         self.noise_kernel = noise_kernel
         self.mean = mean
         self.diag_factor = float(diag_factor)
+        self.solve_dtype = solve_dtype
         self.cov_backend = cov_backend
+        self.evidence_backend = evidence_backend
 
         sizes = (
             kernel.num_params,
@@ -221,23 +263,29 @@ class GPModel:
     def log_prior(self, theta_full: torch.Tensor) -> torch.Tensor:
         return self.hyperprior.log_prob(theta_full)
 
-    def _evidence_plan(self, data: Dataset) -> _EvidencePlan:
-        """The reference's eligibility rules and constants for one dataset,
-        resolved once and reused while the same `Dataset` comes back (every
-        call of a sampler run)."""
+    def _evidence_plan(self, data: Dataset) -> Optional[_EvidencePlan]:
+        """The evidence kernel's constants for one dataset, or None where
+        the reference's eligibility rules send the batch evidence to the
+        route; resolved once and reused while the same `Dataset` comes back
+        (every call of a sampler run)."""
+        if self.evidence_backend == "xla" or self.solve_dtype is not None:
+            return None
         if self._plan_cache is not None and self._plan_cache[0] is data:
             return self._plan_cache[1]
+        plan = self._make_plan(data)
+        self._plan_cache = (data, plan)
+        return plan
+
+    def _make_plan(self, data: Dataset) -> Optional[_EvidencePlan]:
+        if data.T is not None:
+            return None
         if data.num_dim != 1 or not set(data.multi_indices) <= {(0,), (1,)}:
-            raise NotImplementedError(
-                f"{data.num_dim}-D data with orders {data.multi_indices}: the "
-                f"evidence kernel takes 1-D values and slopes; {_GENERIC}"
-            )
+            return None
         cls = fused.classify_flagship(self.kernel)
         if cls is None or self.kernel.delta_terms():
-            raise NotImplementedError(
-                f"kernel {type(self.kernel).__name__} has no evidence-kernel "
-                f"kind; {_GENERIC}"
-            )
+            return None
+        if not evidence_cuda.supported(data.num_latent):
+            return None
         kind, n_base, input_warp = cls
         X = data.Xf[:, 0].detach().cpu().double().numpy()
         nid = data.nid.cpu().numpy()
@@ -245,11 +293,12 @@ class GPModel:
         noise_mask = None
         nk = self.noise_kernel
         if nk is not None:
+            if type(nk) is not DiagonalNoiseKernel:
+                return None
+            # on repeated (x, order) rows the noise couples them off the
+            # diagonal, which the kernel's nd channel cannot hold
             if len(set(zip(X.tolist(), ids.tolist()))) != X.shape[0]:
-                raise NotImplementedError(
-                    "DiagonalNoiseKernel on repeated (x, order) rows couples "
-                    f"them off the diagonal; {_GENERIC}"
-                )
+                return None
             if nk.n_match is None:
                 mask = np.ones(X.shape[0])
             elif nk.n_match in data.multi_indices:
@@ -264,20 +313,28 @@ class GPModel:
             X, ids, data.y, data.err_y.double() ** 2, self.diag_factor,
             data.device, kind,
         )
-        plan = _EvidencePlan(ev, n_base, input_warp, noise_mask)
-        self._plan_cache = (data, plan)
+        return _EvidencePlan(ev, n_base, input_warp, noise_mask)
+
+    def _require_plan(self, data: Dataset) -> _EvidencePlan:
+        plan = self._evidence_plan(data)
+        if plan is None:
+            raise ValueError(
+                "the evidence kernel does not apply to this model and data "
+                f"(evidence_backend {self.evidence_backend!r}); "
+                "log_marginal_batch takes the route"
+            )
         return plan
 
     def _evidence_data(self, data: Dataset) -> evidence_cuda.EvidenceData:
         """The dataset's evidence-kernel constants (`_evidence_plan`)."""
-        return self._evidence_plan(data).ev
+        return self._require_plan(data).ev
 
     def _evidence_inputs(self, thetaT: torch.Tensor, data: Dataset):
         """The kernel's inputs from full theta rows thetaT (P, C): its base
         rows (n_base, C), its constants and the aux channels, each (N, C),
         computed in torch (as the reference's aux closure,
         ``gp.py :: _pallas_evidence_fn``)."""
-        plan = self._evidence_plan(data)
+        plan = self._require_plan(data)
         aux = {}
         if self.mean is not None:
             o, s = self._offsets[2], self._sizes[2]
@@ -301,16 +358,74 @@ class GPModel:
         return thetaT, plan.ev, aux
 
     def log_marginal_batch(self, thetas: torch.Tensor, data: Dataset) -> torch.Tensor:
-        """Batched log marginal likelihood: thetas (C, P) -> (C,)."""
+        """Batched log marginal likelihood: thetas (C, P) -> (C,), by the
+        evidence kernel where it applies, else by the route (module
+        docstring)."""
         if thetas.device != data.device:
             raise ValueError(f"thetas on {thetas.device}, data on {data.device}")
-        thetaT, ev, aux = self._evidence_inputs(thetas.T, data)
-        if data.device.type == "cuda" and not evidence_cuda.supported(ev.n):
-            raise ValueError(
-                f"N = {ev.n} observations exceed the CUDA evidence kernel's "
-                f"N_MAX = {evidence_cuda.N_MAX}"
-            )
-        return evidence_cuda.loglik(thetaT, ev, aux)
+        if self._evidence_plan(data) is not None:
+            thetaT, ev, aux = self._evidence_inputs(thetas.T, data)
+            return evidence_cuda.loglik(thetaT, ev, aux)
+        if not fused.fused_supported(self.kernel, data.multi_indices, data.num_dim):
+            return self._per_chain_batch(thetas, data)
+        return self._chains_minor_batch(thetas, data)
+
+    def _chains_minor_batch(self, thetas: torch.Tensor, data: Dataset) -> torch.Tensor:
+        """The reference's chains-minor XLA path (``gp.py:556-597``): the
+        fused (Q, Q, C) build, the noise kernel by the generic assembly, the
+        mean, ``T K T^T`` and ``T mu``, err_y^2 on the diagonal, the
+        ``solve_dtype`` cast and `evidence.loglik_b`."""
+        evidence_cuda.ROUTE_CALLS["chains_minor"] += 1
+        thetaT = thetas.T
+        Xf = data.Xf.to(thetas.dtype)
+        mi = data.multi_indices
+        Kff = fused.flagship_cov_soa(
+            self.kernel, thetaT[: self._sizes[0]], Xf, data.nid, mi
+        )  # (Q, Q, C)
+        if self.noise_kernel is not None:
+            Kn = assemble.cov_matrix(
+                self.noise_kernel, self._theta_noise(thetas), Xf, data.nid, Xf,
+                data.nid, mi,
+            )  # (C, Q, Q)
+            Kff = Kff + Kn.permute(1, 2, 0)
+        if self.mean is not None:
+            o, s = self._offsets[2], self._sizes[2]
+            mu = mean_vector(self.mean, thetaT[o : o + s], Xf, data.nid, mi)  # (Q, C)
+        else:
+            mu = torch.zeros((Kff.shape[0], 1), dtype=Kff.dtype, device=Kff.device)
+        if data.T is not None:
+            T = data.T.to(Kff.dtype)
+            Kobs = torch.einsum("mi,ijc,nj->mnc", T, Kff, T)
+            mu = T @ mu
+        else:
+            Kobs = Kff
+        err = (data.err_y * data.err_y).to(Kobs.dtype)
+        Kobs = Kobs + torch.diag(err)[:, :, None]
+        r = data.y.to(mu.dtype)[:, None] - mu
+        if self.solve_dtype is not None:
+            Kobs = Kobs.to(self.solve_dtype)
+            r = r.to(self.solve_dtype)
+        r = r.expand(Kobs.shape[0], Kobs.shape[-1])
+        return evidence.loglik_b(Kobs, r, self.diag_factor)
+
+    def _per_chain_batch(self, thetas: torch.Tensor, data: Dataset) -> torch.Tensor:
+        """The reference's ``vmap(log_marginal)`` for kernels the fused
+        builders do not cover and for multi-dimensional data: the batched
+        single-theta `log_marginal` over chunks of chains, each chunk at
+        most `_PER_CHAIN_ENTRIES` covariance entries. Under autograd each
+        chunk's gradient is taken at once, so the assembly's intermediates
+        never outlive their chunk."""
+        evidence_cuda.ROUTE_CALLS["per_chain"] += 1
+        chunk = max(1, _PER_CHAIN_ENTRIES // data.num_latent**2)
+        if thetas.shape[0] <= chunk:
+            return self.log_marginal(thetas, data)
+
+        def fn(t):
+            return self.log_marginal(t, data)
+
+        if torch.is_grad_enabled() and thetas.requires_grad:
+            return _ChunkedVag.apply(fn, chunk, thetas)
+        return torch.cat([fn(t) for t in thetas.split(chunk)])
 
     def log_posterior_batch(self, thetas: torch.Tensor, data: Dataset) -> torch.Tensor:
         lp = self.log_prior(thetas)
@@ -382,31 +497,43 @@ class GPModel:
         return Kff
 
     def _latent_mean(self, theta, data: Dataset):
+        """The mean at the latent points: (..., Q)."""
         if self.mean is None:
-            return torch.zeros(theta.shape[:-1] + (data.num_obs,), dtype=theta.dtype,
+            return torch.zeros(theta.shape[:-1] + (data.num_latent,), dtype=theta.dtype,
                                device=theta.device)
         return self._mean_at(theta, data.Xf, data.nid, data.multi_indices)
 
     def obs_cov_and_resid(self, theta_full: torch.Tensor, data: Dataset):
-        """Observation covariance (kernel, noise kernel, err_y^2 on the
-        diagonal) and the residual y - mu: (..., N, N) and (..., N)."""
+        """Observation covariance (``T K T^T`` of the kernel and the noise
+        kernel, err_y^2 on the diagonal) and the residual ``y - T mu``:
+        (..., M, M) and (..., M)."""
         self._check_device(theta_full, data)
         Kobs = self._latent_cov(theta_full, data, include_noise=True)
+        mu = self._latent_mean(theta_full, data)
+        if data.T is not None:
+            T = data.T.to(Kobs.dtype)
+            Kobs = T @ Kobs @ T.T
+            mu = (T @ mu[..., None])[..., 0]
         Kobs = Kobs + torch.diag(data.err_y * data.err_y).to(Kobs.dtype)
-        r = data.y.to(Kobs.dtype) - self._latent_mean(theta_full, data)
+        r = data.y.to(Kobs.dtype) - mu
+        return Kobs, r
+
+    def _solve_inputs(self, theta_full: torch.Tensor, data: Dataset):
+        Kobs, r = self.obs_cov_and_resid(theta_full, data)
+        if self.solve_dtype is not None:
+            Kobs, r = Kobs.to(self.solve_dtype), r.to(self.solve_dtype)
         return Kobs, r
 
     def compute_K_L_alpha_ll(self, theta_full: torch.Tensor, data: Dataset) -> evidence.CholState:
-        """Build K, factor it, alpha and the log marginal likelihood (the
-        reference's cached quadruple); differentiable by autograd."""
-        Kobs, r = self.obs_cov_and_resid(theta_full, data)
-        return evidence.gaussian_loglik(Kobs, r, self.diag_factor)
+        """Build K, factor it (in ``solve_dtype`` when given), alpha and the
+        log marginal likelihood (the reference's cached quadruple);
+        differentiable by autograd."""
+        return evidence.gaussian_loglik(*self._solve_inputs(theta_full, data), self.diag_factor)
 
     def log_marginal(self, theta_full: torch.Tensor, data: Dataset) -> torch.Tensor:
         """The value of `compute_K_L_alpha_ll`'s ll, with the analytic
         backward (`evidence.loglik`)."""
-        Kobs, r = self.obs_cov_and_resid(theta_full, data)
-        return evidence.loglik(Kobs, r, self.diag_factor)
+        return evidence.loglik(*self._solve_inputs(theta_full, data), self.diag_factor)
 
     def log_posterior(self, theta_full: torch.Tensor, data: Dataset) -> torch.Tensor:
         lp = self.log_prior(theta_full)
@@ -466,7 +593,8 @@ class GPModel:
 
         ``noise=True`` adds the noise kernel to the predictive covariance;
         ``output_transform`` (M, Ns) maps the prediction linearly; ``state``
-        is a `compute_K_L_alpha_ll` result to reuse. With a theta batch
+        is a `compute_K_L_alpha_ll` result to reuse. With transformed
+        observations the star-data block is ``K_sf T^T``. With a theta batch
         (B, P) every output gains the leading B axis."""
         Xs, sid, table = self._star_ids(data, Xstar, n)
         if state is None:
@@ -478,6 +606,9 @@ class GPModel:
                 self.noise_kernel, self._theta_noise(theta_full), Xs, sid,
                 data.Xf, data.nid, table,
             )
+        if data.T is not None:
+            Ksf = Ksf @ data.T.T.to(Ksf.dtype)  # star-observation block
+        Ksf = Ksf.to(torch.promote_types(Ksf.dtype, state.L.dtype))  # solve_dtype
         if self.mean is not None:
             mu_star = self._mean_at(theta_full, Xs, sid, table)
         else:
@@ -596,7 +727,7 @@ class GaussianProcess:
 
     @property
     def X(self):
-        """Latent evaluation points (N, D)."""
+        """Latent evaluation points (Q, D)."""
         return self.data.Xf
 
     @property
@@ -611,6 +742,11 @@ class GaussianProcess:
     def n(self):
         """Derivative multi-index of each point, (N, D) numpy."""
         return np.asarray([self.data.multi_indices[i] for i in self.data.nid.tolist()])
+
+    @property
+    def T(self):
+        """Observation matrix (M, Q), or None."""
+        return self.data.T
 
     @property
     def K(self):
@@ -690,6 +826,10 @@ class GaussianProcess:
         """Drop observations whose standardized residual exceeds
         ``thresh``, then refresh; returns the number removed."""
         data = self.data
+        if data.T is not None:
+            raise NotImplementedError(
+                "remove_outliers with transformed observations is not supported"
+            )
         with torch.no_grad():
             pred = self.model.predict(self.theta, data, data.Xf, n=0, return_std=True)
         err = data.err_y.cpu().numpy()

@@ -6,10 +6,10 @@ the mean half of `gptools_tpu.ops.assemble` (`mean_vector`). Metadata
 (names, bounds, initial values, fixed flags, hyperprior) follows the
 reference. Where the reference evaluates one parameter vector per call
 under ``vmap``, here ``_scalar(X (N, D), thetaT (P, C)) -> (N, C)`` takes
-the whole chain batch, and `mean_vector` takes the slope rows by forward
-mode in x (`torch.func.jvp`). Orders beyond {0, 1} in one dimension, and
-`SumMeanFunction` / `ArbitraryMeanFunction`, are ROADMAP Queue 1 items 10
-and 11.
+the whole chain batch, and `mean_vector` takes each derivative order by
+the forward-mode towers of `ops.derivs` in x (each row of the output
+depends on its own row of X only). `SumMeanFunction` and
+`ArbitraryMeanFunction` are ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from gptools_tpu_torch.ops import derivs
 from gptools_tpu_torch.utils.priors import JointPrior, UniformJointPrior
 
 __all__ = [
@@ -126,21 +127,15 @@ class MtanhMeanFunction1d(MeanFunction):
 
 def mean_vector(mean_fn: MeanFunction, thetaT, X, nid, multi_indices) -> torch.Tensor:
     """The mean at each observation's derivative order: thetaT (P, C),
-    X (N, D), nid (N,) ids into ``multi_indices`` -> (N, C). One-dimensional
-    orders 0 and 1 only."""
+    X (N, D), nid (N,) ids into ``multi_indices`` -> (N, C), at any
+    derivative multi-index."""
+
+    def scalar(x):
+        return mean_fn._scalar(x, thetaT)
+
     out = None
     for aid, a in enumerate(tuple(tuple(m) for m in multi_indices)):
-        if a == (0,) * len(a):
-            vals = mean_fn._scalar(X, thetaT)
-        elif a == (1,):
-            _, vals = torch.func.jvp(
-                lambda x: mean_fn._scalar(x, thetaT), (X,), (torch.ones_like(X),)
-            )
-        else:
-            raise NotImplementedError(
-                f"mean derivative order {a}: the generic assembly is ROADMAP "
-                "Queue 1 item 10"
-            )
+        vals = derivs.mixed_partial(scalar, (a,))(X)
         rows = (nid == aid)[:, None]
         out = torch.where(rows, vals, 0.0 if out is None else out)
     return out

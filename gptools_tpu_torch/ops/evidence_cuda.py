@@ -44,7 +44,11 @@ Routes, chosen by the device of ``thetaT`` and nothing else:
   + `evidence.loglik_b`, gradients by autograd).
 
 `LAUNCHES` counts kernel launches and `PLAIN_CALLS` calls of the plain
-version, per kind, so a run can show which route it took.
+version, per kind, so a run can show which route it took. Where the kernel
+does not apply (`models.gp.GPModel.log_marginal_batch` decides that from the
+model and the data), the batch evidence takes the reference's XLA route in
+torch instead; `ROUTE_CALLS` counts those calls, per route
+(``chains_minor``, ``per_chain``), apart from both.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ __all__ = [
     "N_MAX",
     "LAUNCHES",
     "PLAIN_CALLS",
+    "ROUTE_CALLS",
     "reset_counts",
     "build",
     "library",
@@ -88,6 +93,7 @@ AUX_NAMES = ("mu", "nd", "w", "wp")
 
 LAUNCHES = {k: 0 for k in KINDS}
 PLAIN_CALLS = {k: 0 for k in KINDS}
+ROUTE_CALLS = {"chains_minor": 0, "per_chain": 0}
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -104,10 +110,12 @@ BUILD_INFO: dict = {}
 
 
 def reset_counts() -> None:
-    """Set every launch and plain-call count to 0."""
+    """Set every launch, plain-call and route-call count to 0."""
     for k in KINDS:
         LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
+    for k in ROUTE_CALLS:
+        ROUTE_CALLS[k] = 0
 
 
 class EvidenceData(NamedTuple):

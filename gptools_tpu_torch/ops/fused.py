@@ -5,7 +5,8 @@ Counterpart of `gptools_tpu.ops.fused`, in two halves:
 - chains-minor, thetaT (P, C) -> (N, N, C): the Gibbs-tanh, SE and
   Matern-5/2 {value, slope} blocks over the upper-triangle pairs, the
   BetaWarp / LinearWarp input-warped builds and `flagship_cov_soa`. They
-  are the covariance half of the evidence kernel's plain version.
+  are the covariance half of the evidence kernel's plain version and of
+  the batch evidence's chains-minor route (`models.gp`).
 - single theta, theta (P,) -> (N, N), or a leading batch (B, P) ->
   (B, N, N): `se_cov_fused`, `gibbs_tanh_cov_fused`, `matern52_cov_fused`,
   `warped_cov_fused` and `flagship_cov` with its ``backend`` switch. They

@@ -1,23 +1,26 @@
-"""Covariance-function objects for configs 2-4.
+"""Covariance-function objects for configs 2-5.
 
 Counterpart of `gptools_tpu.ops.kernels`: names, bounds, initial values,
 fixed flags and the hyperprior, with the reference's parameter order and
 defaults, and the covariance surface of the reference's `Kernel`
 (``_scalar``, ``smooth_scalar``, ``block_fn``, ``__call__``,
-``has_smooth``) for the squared exponential, the Gibbs kernel with the
-tanh warp and the diagonal noise. The scalars broadcast: points ``(..., D)``
+``has_smooth``) for the squared exponential, the half-integer Matern
+kernels, the Gibbs kernel with the tanh warp, the diagonal noise and the
+`WarpedKernel` under a `LinearWarp` or `BetaWarp`. The scalars broadcast: points ``(..., D)``
 and hyperparameters ``(..., P)`` (parameter axis last, so a leading theta
 batch broadcasts too). Derivative blocks come from `ops.derivs`. The
 batched evidence path does not use these scalars: it takes the fused
 builders (`gptools_tpu_torch.ops.fused`) and the CUDA kernels.
 
-The scalars of `MaternKernel` and `WarpedKernel` are ROADMAP Queue 1 item
-11, as are the other kernels and warps; their ``_scalar`` raises.
+The other kernels and warps (free-nu Matern, rational quadratic, the
+kernel algebra, the other length-scale and input warps) are ROADMAP Queue 1
+item 11.
 """
 
 from __future__ import annotations
 
 import math
+from fractions import Fraction
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -167,10 +170,46 @@ class SquaredExponentialKernel(Kernel):
         return sigma_f * sigma_f * torch.exp(-0.5 * torch.sum(z * z, -1))
 
 
+def _matern_poly(p: int):
+    """Coefficients c_j of ``P_p(s) = sum_j c_j s^j`` in the half-integer
+    Matern shape ``exp(-s) P_p(s)``, as exact rationals:
+    c_{p-i} = p!/(2p)! (p+i)!/(i!(p-i)!) 2^{p-i}."""
+    pref = Fraction(math.factorial(p), math.factorial(2 * p))
+    c = [Fraction(0)] * (p + 1)
+    for i in range(p + 1):
+        c[p - i] = pref * Fraction(
+            math.factorial(p + i), math.factorial(i) * math.factorial(p - i)
+        ) * 2 ** (p - i)
+    return c
+
+
+def _matern_series_coeffs(p: int):
+    """Taylor coefficients (t0, t1, t2) of the shape in ``u = s^2``:
+    ``f = t0 + t1 u + t2 u^2 + O(u^{5/2})``, from the coefficients a_m of
+    s^m in ``exp(-s) P_p(s)``."""
+    c = _matern_poly(p)
+
+    def a(m):
+        return sum(c[j] * Fraction((-1) ** (m - j), math.factorial(m - j))
+                   for j in range(min(m, p) + 1))
+
+    return float(a(0)), float(a(2)), float(a(4))
+
+
 class MaternKernel(Kernel):
-    """Half-integer Matern kernel, ``nu = p + 1/2``; parameters
-    ``(sigma_f, l_1, ..., l_D)``. Only ``p = 2`` (nu = 5/2) has a fused
-    builder and a CUDA kind; other orders are ROADMAP Queue 1 item 11."""
+    """Half-integer Matern kernel, ARD, ``nu = p + 1/2`` with p >= 1:
+
+        k = sigma_f^2 exp(-s) P_p(s),   s = sqrt(2 nu) r,
+        r^2 = sum_d (x1_d - x2_d)^2 / l_d^2;
+
+    parameters ``(sigma_f, l_1, ..., l_D)``. Below ``u = s^2 = _U_SWITCH``
+    the shape is its even Taylor series in u, so the derivative blocks are
+    finite and exact at coincident points (the exact branch is evaluated at
+    a safe argument there, so its tangents stay finite). Only p = 2 has a
+    fused builder and an evidence-kernel kind; free nu is ROADMAP Queue 1
+    item 11."""
+
+    _U_SWITCH = 1e-6
 
     def __init__(self, nu: float = 2.5, num_dim: int = 1, **kw):
         two_nu = 2.0 * nu
@@ -181,14 +220,29 @@ class MaternKernel(Kernel):
             )
         self.nu = float(nu)
         self.p = int(round(nu - 0.5))
-        if self.p != 2:
+        if self.p == 0:
             raise NotImplementedError(
-                f"MaternKernel nu = {nu}: only nu = 5/2 is ported; the other "
-                "orders are ROADMAP Queue 1 item 11"
+                "nu = 1/2 (exponential kernel) is not differentiable at "
+                "coincident points; use MaternKernel(nu=1.5) or higher"
             )
+        self._poly = tuple(float(v) for v in _matern_poly(self.p))
+        self._taylor = _matern_series_coeffs(self.p)
         names = ("sigma_f",) + tuple(f"l_{d+1}" for d in range(num_dim))
         kw.setdefault("default_bounds", [(1e-4, 1e4)] * (num_dim + 1))
         super().__init__(num_dim, names, **kw)
+
+    def _scalar(self, x1, x2, theta):
+        sigma_f = theta[..., 0]
+        z = (x1 - x2) / theta[..., 1 : 1 + self.num_dim]
+        u = 2.0 * self.nu * torch.sum(z * z, -1)
+        far = u > self._U_SWITCH
+        s = torch.sqrt(torch.where(far, u, 1.0))
+        poly = self._poly[self.p]
+        for c in self._poly[-2::-1]:
+            poly = poly * s + c
+        t0, t1, t2 = self._taylor
+        f = torch.where(far, torch.exp(-s) * poly, t0 + u * (t1 + u * t2))
+        return sigma_f * sigma_f * f
 
 
 class Matern52Kernel(MaternKernel):
@@ -275,8 +329,9 @@ class DiagonalNoiseKernel(Kernel):
 
 
 class InputWarp:
-    """Monotone coordinate map ``w(x)`` (metadata; the maps live in
-    `fused.warp_coords`)."""
+    """Monotone coordinate map ``w(x, theta)``, applied to each input
+    dimension; x broadcasts against theta's leading axes, the warp's
+    parameters on its last axis."""
 
     param_names: Tuple[str, ...] = ()
     default_bounds: Tuple[tuple, ...] = ()
@@ -284,6 +339,12 @@ class InputWarp:
     @property
     def num_params(self):
         return len(self.param_names)
+
+    def __call__(self, x, theta):
+        raise NotImplementedError(
+            f"input warp {type(self).__name__}: only LinearWarp and BetaWarp "
+            "are ported; the others are ROADMAP Queue 1 item 11"
+        )
 
 
 class LinearWarp(InputWarp):
@@ -293,12 +354,22 @@ class LinearWarp(InputWarp):
         self.a = float(a)
         self.b = float(b)
 
+    def __call__(self, x, theta):
+        return (x - self.a) / (self.b - self.a)
+
 
 class BetaWarp(InputWarp):
-    """Beta-CDF warp ``w(x) = I_x(a, b)`` on [0, 1]; parameters (a, b)."""
+    """Beta-CDF warp ``w(x) = I_x(a, b)`` on [0, 1]; parameters (a, b),
+    through the quadrature `special.betainc_dd` (differentiable in x, a
+    and b)."""
 
     param_names = ("a", "b")
     default_bounds = ((1e-2, 1e2), (1e-2, 1e2))
+
+    def __call__(self, x, theta):
+        from gptools_tpu_torch.ops.special import betainc_dd
+
+        return betainc_dd(theta[..., 0], theta[..., 1], x)
 
 
 class WarpedKernel(Kernel):
@@ -322,3 +393,10 @@ class WarpedKernel(Kernel):
             "param_bounds", list(base.param_bounds) + list(warp.default_bounds)
         )
         super().__init__(base.num_dim, names, **kw)
+
+    def _scalar(self, x1, x2, theta):
+        pb = self.base.num_params
+        tb, tw = theta[..., :pb], theta[..., pb:]
+        w1 = torch.stack([self.input_warp(x1[..., d], tw) for d in range(self.num_dim)], -1)
+        w2 = torch.stack([self.input_warp(x2[..., d], tw) for d in range(self.num_dim)], -1)
+        return self.base.smooth_scalar(w1, w2, tb)

@@ -1,1 +1,1 @@
-"""Bijectors, priors and chain diagnostics (config-4 subset)."""
+"""Bijectors, priors, bounds, chain diagnostics and the native diagnostics binding."""

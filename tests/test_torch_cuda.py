@@ -122,10 +122,23 @@ def test_model_gradient_through_kernel(dev, problem):
 
 
 def test_model_raises_beyond_kernel_range(dev):
+    """Past N_MAX the kernel's wrapper still raises; the model does not
+    call it there, and takes the route instead (as the reference does), with
+    the CPU's numbers."""
     prob = configs.config4_gibbs_smc(n_points=47, dtype=torch.float64, device=dev)
     th = _draws(4, torch.float64, dev).T.contiguous()
-    with pytest.raises(ValueError, match="N_MAX"):
-        prob.model.log_marginal_batch(th, prob.data)
+    big = evidence_cuda.make_data(prob.data.Xf[:, 0], prob.data.nid, prob.data.y,
+                                  prob.data.err_y ** 2, 1e2, dev)
+    assert big.n == 49
+    with pytest.raises(ValueError, match="outside the kernel's range"):
+        evidence_cuda.loglik_vag_cuda(th.T.contiguous(), big)
+    evidence_cuda.reset_counts()
+    ll = prob.model.log_marginal_batch(th, prob.data)
+    assert evidence_cuda.ROUTE_CALLS["chains_minor"] == 1
+    assert sum(evidence_cuda.LAUNCHES.values()) == 0
+    cpu = configs.config4_gibbs_smc(n_points=47, dtype=torch.float64, device="cpu")
+    np.testing.assert_allclose(
+        ll.cpu().numpy(), cpu.model.log_marginal_batch(th.cpu(), cpu.data).numpy(), rtol=1e-9)
 
 
 # ---- kinds se and matern52, with the aux channels ---------------------------
@@ -367,3 +380,77 @@ def test_frozen_mcmc_predictor_pallas_on_card(dev, cov_problem):
             assert cov_cuda.LAUNCHES[kind] == 1 and sum(cov_cuda.PLAIN_CALLS.values()) == 0
     for a, b in zip(out["pallas"], out["fused"]):
         np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)
+
+
+# ---- the route past the kernel, and config 5's shapes ------------------------
+
+
+def test_route_at_n62_matches_cpu(dev):
+    """Config 4 at 60 points (N = 62 > N_MAX) takes the chains-minor route
+    on the card (no launch), with the CPU's ll (1e-9) and gradient (1e-9 /
+    1e-9)."""
+    prob = configs.config4_gibbs_smc(n_points=60, dtype=torch.float64, device=dev)
+    cpu = configs.config4_gibbs_smc(n_points=60, dtype=torch.float64, device="cpu")
+    th = _golden_draws(4, 256, torch.float64, dev, seed=62)
+    evidence_cuda.reset_counts()
+    t = th.clone().requires_grad_(True)
+    ll = prob.model.log_marginal_batch(t, prob.data)
+    (g,) = torch.autograd.grad(ll.sum(), t)
+    assert evidence_cuda.ROUTE_CALLS["chains_minor"] == 1
+    assert sum(evidence_cuda.LAUNCHES.values()) == 0
+    assert sum(evidence_cuda.PLAIN_CALLS.values()) == 0
+    tc = th.cpu().requires_grad_(True)
+    llc = cpu.model.log_marginal_batch(tc, cpu.data)
+    (gc,) = torch.autograd.grad(llc.sum(), tc)
+    np.testing.assert_allclose(ll.detach().cpu().numpy(), llc.detach().numpy(), rtol=1e-9)
+    np.testing.assert_allclose(g.cpu().numpy(), gc.numpy(), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("B", [1, 512])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_cov_kernel_config5_shapes(dev, B, dtype):
+    """gibbs_tanh at config 5's served shapes, (B, 47) on its latent points
+    (47 is odd: every other float64 row starts off a 16-byte boundary),
+    thetas from its golden: within 1e-12 (f64) / 1e-5 (f32) of max |K| of
+    the plain version, exactly symmetric, one launch."""
+    from gptools_tpu_torch.ops import cov_cuda
+
+    prob = configs.config5_multihost_profile(dtype=torch.float64, device=dev)
+    X, nid = prob.data.Xf.reshape(-1), prob.data.nid
+    assert X.shape == (47,)
+    th = _golden_draws(5, B, dtype, dev, seed=B)
+    n0 = cov_cuda.LAUNCHES["gibbs_tanh"]
+    K = cov_cuda.cov_cuda("gibbs_tanh", X, nid, th)
+    torch.cuda.synchronize()
+    assert cov_cuda.LAUNCHES["gibbs_tanh"] == n0 + 1
+    Kp = cov_cuda.cov_plain("gibbs_tanh", X, nid, th)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert float((K - Kp).abs().max() / Kp.abs().max()) <= tol
+    assert bool((K == K.mT).all())
+
+
+def test_per_chain_route_on_card(dev, monkeypatch):
+    """A 2-D SE model (no fused build) takes the per-chain route on the
+    card, here in three chunks of 32 chains, with the CPU's ll (1e-9) and
+    gradient (1e-9 / 1e-9)."""
+    from gptools_tpu_torch.models import gp
+
+    rng = np.random.default_rng(4)
+    X = rng.uniform(0.0, 1.0, (30, 2))
+    th = rng.uniform(0.3, 1.1, (96, 3))
+    monkeypatch.setattr(gp, "_PER_CHAIN_ENTRIES", 32 * 30**2)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        b = DatasetBuilder(2)
+        b.add(X, np.sin(X.sum(1)), err_y=0.1)
+        data = b.build(torch.float64, d)
+        model = GPModel(SquaredExponentialKernel(num_dim=2))
+        evidence_cuda.reset_counts()
+        t = torch.tensor(th, device=d, requires_grad=True)
+        ll = model.log_marginal_batch(t, data)
+        (g,) = torch.autograd.grad(ll.sum(), t)
+        assert evidence_cuda.ROUTE_CALLS["per_chain"] == 1
+        assert sum(evidence_cuda.LAUNCHES.values()) == 0
+        out[d.type] = (ll.detach().cpu().numpy(), g.cpu().numpy())
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-9)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-9, atol=1e-9)

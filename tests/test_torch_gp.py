@@ -123,5 +123,9 @@ def test_free_fixed_plumbing_matches_jax(rng):
 
 
 def test_unported_model_parts_raise():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TGPModel(TGibbs(), noise_kernel=object())
+    """A noise kernel the port does not have yet (any ported kernel is a
+    valid noise kernel now): converting the model names its queue item."""
+    from gptools_tpu.ops.kernels import RationalQuadraticKernel
+
+    with pytest.raises(NotImplementedError, match="item 11"):
+        convert.model_from_jax(JGPModel(JGibbs(), noise_kernel=RationalQuadraticKernel()))

@@ -10,8 +10,9 @@ against the JAX package, float64.
   theta gradient against JAX's ``evidence_backend="xla"`` path (ll rtol
   1e-9, gradient rtol 1e-6 / atol 1e-9) and `log_posterior_u_batch` at
   1e-9;
-- what the port refuses: repeated-row diagonal noise, kernels without an
-  evidence-kernel kind, and the card when there is none.
+- repeated-row diagonal noise (the route, held to the reference), what
+  the port still refuses (warps and Matern orders it lacks), and the card
+  when there is none.
 """
 
 import math
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from gptools_tpu import configs as jconfigs
+from gptools_tpu.models import dataset as jdataset
 from gptools_tpu.models import mean as jmean
 from gptools_tpu.models.gp import GPModel as JGPModel
 from gptools_tpu.ops import assemble as jassemble
@@ -236,24 +238,40 @@ def test_config2_matches_jax():
 
 
 def test_duplicate_row_noise_raises():
+    """A DiagonalNoiseKernel on a repeated x couples the two rows off the
+    diagonal: the evidence kernel does not apply, and the batch evidence
+    takes the route, where it matches the reference (it used to raise)."""
     b = DatasetBuilder(1)
     X = np.array([0.1, 0.3, 0.3, 0.8])  # a repeated x: the noise couples rows
     b.add(X, np.sin(X), err_y=0.1)
     data = b.build(torch.float64, "cpu")
     m = TGPModel(tkernels.SquaredExponentialKernel(),
                  noise_kernel=tkernels.DiagonalNoiseKernel(n=0))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        m.log_marginal_batch(torch.ones(2, 3, dtype=torch.float64), data)
+    assert m._evidence_plan(data) is None
+    jb = jdataset.DatasetBuilder(1)
+    jb.add(X, np.sin(X), err_y=0.1)
+    jm = JGPModel(jkernels.SquaredExponentialKernel(),
+                  noise_kernel=jkernels.DiagonalNoiseKernel(n=0))
+    th = np.array([[1.0, 0.3, 0.2], [0.7, 0.5, 0.05]])
+    np.testing.assert_allclose(
+        m.log_marginal_batch(torch.tensor(th), data).numpy(),
+        np.asarray(jm.log_marginal_batch(jnp.asarray(th), jb.build(dtype=jnp.float64))),
+        rtol=1e-9,
+    )
 
 
 def test_unclassified_kernel_raises():
+    """A kernel without an evidence-kernel kind takes the per-chain route,
+    which needs the kernel's own scalar: a warp the port lacks raises there
+    (ROADMAP Queue 1 item 11), as does the Matern order the reference
+    refuses (nu = 1/2)."""
     data = DatasetBuilder(1).add(np.linspace(0, 1, 4), np.zeros(4), err_y=0.1).build(
         torch.float64, "cpu")
     k = tkernels.WarpedKernel(tkernels.Matern52Kernel(), tkernels.InputWarp())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TGPModel(k).log_marginal_batch(torch.ones(2, 2, dtype=torch.float64), data)
     with pytest.raises(NotImplementedError, match="item 11"):
-        tkernels.MaternKernel(nu=1.5)
+        TGPModel(k).log_marginal_batch(torch.ones(2, 2, dtype=torch.float64), data)
+    with pytest.raises(NotImplementedError, match="nu = 1/2"):
+        tkernels.MaternKernel(nu=0.5)
 
 
 @pytest.mark.parametrize("config", [2, 3, 4])

@@ -249,8 +249,8 @@ def test_unported_routes_raise():
         run_sampler(model, None, torch.Generator(), sampler="emcee")
     with pytest.raises(NotImplementedError, match="item 13"):
         TGP(tk.SquaredExponentialKernel(), device="cpu").optimize_hyperparameters()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        GPModel(tk.SquaredExponentialKernel(), solve_dtype=torch.float32)
+    with pytest.raises(ValueError, match="evidence_backend"):
+        GPModel(tk.SquaredExponentialKernel(), evidence_backend="pallas")
     with pytest.raises(ValueError, match="cov_backend"):
         GPModel(tk.SquaredExponentialKernel(), cov_backend="xla")
     assert isinstance(FrozenPredictor, type)

@@ -162,8 +162,12 @@ def test_kernel_call_and_scalars():
             b = float(jker(jnp.asarray([0.3]), jnp.asarray([0.55]), jnp.asarray(theta), ni, nj))
             assert abs(a - b) <= 1e-13 * max(1.0, abs(b))
     assert kernels.DiagonalNoiseKernel().has_smooth is False
-    with pytest.raises(NotImplementedError, match="item 11"):
-        kernels.Matern52Kernel()._scalar(torch.zeros(1), torch.zeros(1), torch.ones(2))
+    for ni, nj in ((0, 0), (1, 1)):  # the Matern scalar, now ported
+        a = float(kernels.Matern52Kernel()([0.3], [0.55],
+                                           torch.tensor([1.1, 0.4], dtype=torch.float64), ni, nj))
+        b = float(jk.Matern52Kernel()(jnp.asarray([0.3]), jnp.asarray([0.55]),
+                                      jnp.asarray([1.1, 0.4]), ni, nj))
+        assert abs(a - b) <= 1e-13 * max(1.0, abs(b))
 
     class OtherWarp(LengthScaleWarp):
         param_names = ("l0",)
@@ -338,8 +342,9 @@ def test_theta_batch_matches_single_theta(surface):
 def test_config3_single_theta_matches_batch_evidence():
     """Config 3 (warped Matern-5/2 with a linear mean) takes the fused
     single-theta build: its ll equals the batch evidence path's (held to
-    the reference in test_torch_aux_evidence.py); its prediction needs the
-    Matern scalar, which is not ported yet."""
+    the reference in test_torch_aux_evidence.py); its prediction, through
+    the Matern and warped scalars, is held to the reference in
+    test_torch_warped_matern.py and is finite here on both backends."""
     from gptools_tpu_torch import configs
 
     prob = configs.config3_matern_mean_warp_hmc(device="cpu")
@@ -349,8 +354,8 @@ def test_config3_single_theta_matches_batch_evidence():
         st = prob.model.compute_K_L_alpha_ll(theta, prob.data)
         lb = prob.model.log_marginal_batch(theta[None], prob.data)
         np.testing.assert_allclose(float(st.ll), float(lb[0]), rtol=1e-11)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        prob.model.predict(theta, prob.data, [0.5])
+        pred = prob.model.predict(theta, prob.data, [0.2, 0.5], n=1)
+        assert bool(torch.isfinite(pred.mean).all()) and bool((pred.std > 0).all())
 
 
 def test_failed_factor_contract():
