@@ -1,15 +1,15 @@
-"""Benchmark configurations 2, 3, 4 and 5.
+"""Benchmark configurations 1 to 5.
 
 Counterparts of `gptools_tpu.configs`: the same numpy data generation from
 the seed, the same priors and the same ``sampler`` / ``sampler_kwargs``
 metadata, built in a given dtype on the card unless the caller passes
-``device="cpu"``. Config 2 is an SE GP with two slope constraints (N = 32),
+``device="cpu"``. Config 1 is an SE GP on 40 values of sin 2x, fitted by
+MAP alone (``sampler`` None, 8 random starts), config 2 is an SE GP with two slope constraints (N = 32),
 config 3 a BetaWarp-ed Matern-5/2 GP with a linear mean (N = 35), config 4
 the Gibbs-tanh pedestal fit (N = 27), config 5 the same model family with
 a line-integral observation (M = 32 observations of Q = 47 latent points,
 through the observation matrix T). The reference runs config 5's 1024
 chains sharded over a mesh; here they run on one card, with no mesh.
-Config 1 is ROADMAP Queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from gptools_tpu_torch.models.dataset import resolve_device
 
 __all__ = [
     "BaselineProblem",
+    "config1_se_map",
     "config2_se_deriv_nuts",
     "config3_matern_mean_warp_hmc",
     "config4_gibbs_smc",
@@ -41,9 +42,45 @@ class BaselineProblem:
     description: str
     model: object            # GPModel
     data: object             # Dataset
-    sampler: Optional[str]
+    sampler: Optional[str]   # None: MAP only
     sampler_kwargs: dict
     truth: dict
+
+
+def config1_se_map(
+    seed: int = 0,
+    n_points: int = 40,
+    dtype: torch.dtype = torch.float64,
+    device="cuda",
+) -> BaselineProblem:
+    """1-D SE GP regression, MAP hyperparameter fit."""
+    from gptools_tpu_torch.models.dataset import DatasetBuilder
+    from gptools_tpu_torch.models.gp import GPModel
+    from gptools_tpu_torch.ops.kernels import SquaredExponentialKernel
+    from gptools_tpu_torch.utils.priors import LogNormalJointPrior
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    X = np.linspace(0, 3, n_points)
+    f = np.sin(2.0 * X)
+    err = 0.1
+    y = f + err * rng.standard_normal(n_points)
+    b = DatasetBuilder(1)
+    b.add(X, y, err_y=err)
+    model = GPModel(
+        SquaredExponentialKernel(
+            hyperprior=LogNormalJointPrior([0.0, -0.7], [1.0, 1.0])
+        )
+    )
+    return BaselineProblem(
+        name="config1_se_map",
+        description="1D SE-kernel GP regression, MAP fit",
+        model=model,
+        data=b.build(dtype, dev),
+        sampler=None,
+        sampler_kwargs=dict(random_starts=8),
+        truth=dict(f=f, X=X, err=err),
+    )
 
 
 def config2_se_deriv_nuts(
@@ -222,6 +259,7 @@ def config5_multihost_profile(
 
 
 ALL_CONFIGS = {
+    1: config1_se_map,
     2: config2_se_deriv_nuts,
     3: config3_matern_mean_warp_hmc,
     4: config4_gibbs_smc,

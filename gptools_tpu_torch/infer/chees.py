@@ -151,18 +151,8 @@ def chees_step(
     ), stats
 
 
-def _value_and_grad(logp: Callable) -> Callable:
-    """Batched value and gradient of ``logp``: one backward of the summed
-    densities; no graph outlives the call."""
-
-    def logp_and_grad(qs):
-        with torch.enable_grad():
-            q = qs.detach().requires_grad_(True)
-            lls = logp(q)
-            (g,) = torch.autograd.grad(lls.sum(), q)
-        return lls.detach(), g
-
-    return logp_and_grad
+# the batched value and gradient every sampler uses (`hmc.value_and_grad`)
+_value_and_grad = _hmc.value_and_grad
 
 
 @torch.no_grad()

@@ -53,8 +53,6 @@ backend, as the reference does. ``solve_dtype`` casts the observation
 covariance and the residual before the factorization. `GaussianProcess`
 is the reference's stateful wrapper; `models.serve` holds the frozen
 predictors.
-
-Not ported: ``optimize_hyperparameters`` (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -866,11 +864,22 @@ class GaussianProcess:
         return self.compute_K_L_alpha_ll().ll
 
     # -- inference ----------------------------------------------------------
-    def optimize_hyperparameters(self, *args, **kwargs):
-        raise NotImplementedError(
-            "optimize_hyperparameters needs map_fit and a batched L-BFGS: "
-            "ROADMAP Queue 1 item 13"
-        )
+    def optimize_hyperparameters(self, random_starts: int = 8,
+                                 generator: Optional[torch.Generator] = None, **opt_kwargs):
+        """Multi-start MAP (`infer.map_fit.optimize`: the current point and
+        ``random_starts`` prior draws, all optimized at once by a batched
+        L-BFGS); leaves the wrapper at the best start and returns the
+        `MAPResult`. ``generator`` defaults to one seeded with 0 on the
+        wrapper's device."""
+        from gptools_tpu_torch.infer import map_fit
+
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        result = map_fit.optimize(self.model, self.data, generator,
+                                  random_starts=random_starts, **opt_kwargs)
+        self.theta = result.theta
+        self._state = None
+        return result
 
     def sample_hyperparameter_posterior(
         self,

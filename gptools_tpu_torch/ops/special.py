@@ -39,16 +39,21 @@ def _tanh_sinh_nodes(n: int, L: float):
     return log_t, log_1mt, log_w
 
 
+@lru_cache(maxsize=16)
+def _nodes_on(num_nodes: int, L: float, dtype: torch.dtype, device: torch.device):
+    """`_tanh_sinh_nodes` as tensors of ``dtype`` on ``device``, made once
+    (each upload would be a host-to-device copy that waits for the card)."""
+    return tuple(torch.as_tensor(v, dtype=dtype, device=device)
+                 for v in _tanh_sinh_nodes(num_nodes, L))
+
+
 def betainc_dd(a, b, x, *, num_nodes: int = 144, L: float = 5.2):
     """``I_x(a, b)`` with ``B(x; a, b) = x^a int_0^1 s^(a-1) (1 - x s)^(b-1)
     ds`` by tanh-sinh quadrature, over ``B(a, b)`` from `torch.lgamma`.
     Broadcasts over a, b and x (tensors of one dtype and device)."""
     dtype = torch.promote_types(torch.result_type(a, b), x.dtype)
     dev = x.device
-    log_s, log_1ms, log_w = (
-        torch.as_tensor(v, dtype=dtype, device=dev)
-        for v in _tanh_sinh_nodes(num_nodes, L)
-    )
+    log_s, log_1ms, log_w = _nodes_on(num_nodes, L, dtype, dev)
     xc = torch.clamp(x, 1e-12, 1.0 - 1e-12)
     a_ = a[..., None]
     b_ = b[..., None]

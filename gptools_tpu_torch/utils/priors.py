@@ -64,6 +64,18 @@ class JointPrior:
     def bounds(self) -> list:
         raise NotImplementedError
 
+    def _consts(self, names: tuple, dtype: torch.dtype, device) -> tuple:
+        """The tuple fields ``names`` as tensors of ``dtype`` on ``device``,
+        made once per (dtype, device): a tensor made from a list on each
+        call is a host-to-device copy, which waits for the card's queue."""
+        cache = self.__dict__.setdefault("_const_cache", {})
+        key = (names, dtype, torch.device(device))
+        if key not in cache:
+            cache[key] = tuple(
+                torch.tensor(getattr(self, n), dtype=dtype, device=device) for n in names
+            )
+        return cache[key]
+
     def bijector(self) -> bij.Bijector:
         return bij.bijector_from_bounds(self.bounds)
 
@@ -124,16 +136,14 @@ class UniformJointPrior(JointPrior):
         self.dim = len(self.lb)
 
     def log_prob(self, theta):
-        lb = torch.tensor(self.lb, dtype=theta.dtype, device=theta.device)
-        ub = torch.tensor(self.ub, dtype=theta.dtype, device=theta.device)
+        lb, ub = self._consts(("lb", "ub"), theta.dtype, theta.device)
         inside = ((theta >= lb) & (theta <= ub)).all(-1)
         lp = -torch.log(ub - lb).sum()
         return torch.where(inside, lp, torch.full_like(lp, -math.inf))
 
     def sample(self, generator, shape, dtype):
         dev = generator.device
-        lb = torch.tensor(self.lb, dtype=dtype, device=dev)
-        ub = torch.tensor(self.ub, dtype=dtype, device=dev)
+        lb, ub = self._consts(("lb", "ub"), dtype, dev)
         u = torch.rand(
             tuple(shape) + (self.dim,), generator=generator, dtype=dtype, device=dev
         )
@@ -156,15 +166,13 @@ class NormalJointPrior(JointPrior):
         self.dim = k
 
     def log_prob(self, theta):
-        mu = torch.tensor(self.mu, dtype=theta.dtype, device=theta.device)
-        sig = torch.tensor(self.sigma, dtype=theta.dtype, device=theta.device)
+        mu, sig = self._consts(("mu", "sigma"), theta.dtype, theta.device)
         z = (theta - mu) / sig
         return (-0.5 * z * z - torch.log(sig) - _HALF_LOG_2PI).sum(-1)
 
     def sample(self, generator, shape, dtype):
         dev = generator.device
-        mu = torch.tensor(self.mu, dtype=dtype, device=dev)
-        sig = torch.tensor(self.sigma, dtype=dtype, device=dev)
+        mu, sig = self._consts(("mu", "sigma"), dtype, dev)
         z = torch.randn(
             tuple(shape) + (self.dim,), generator=generator, dtype=dtype, device=dev
         )
@@ -188,8 +196,7 @@ class LogNormalJointPrior(JointPrior):
         self.dim = k
 
     def log_prob(self, theta):
-        mu = torch.tensor(self.mu, dtype=theta.dtype, device=theta.device)
-        sig = torch.tensor(self.sigma, dtype=theta.dtype, device=theta.device)
+        mu, sig = self._consts(("mu", "sigma"), theta.dtype, theta.device)
         pos = theta > 0
         # double where: log never sees a non-positive value, so an
         # out-of-support draw gets -inf with a finite (zero) gradient
@@ -201,8 +208,7 @@ class LogNormalJointPrior(JointPrior):
 
     def sample(self, generator, shape, dtype):
         dev = generator.device
-        mu = torch.tensor(self.mu, dtype=dtype, device=dev)
-        sig = torch.tensor(self.sigma, dtype=dtype, device=dev)
+        mu, sig = self._consts(("mu", "sigma"), dtype, dev)
         z = torch.randn(
             tuple(shape) + (self.dim,), generator=generator, dtype=dtype, device=dev
         )

@@ -111,3 +111,21 @@ def test_sample_shapes_and_support():
     se = np.array([0.75, 0.6, 0.6, 0.6]) / np.sqrt(4096)
     assert np.all(np.abs(logs - np.array([0.0, -1.0, -2.3, -2.3])) < 4 * se)
     assert float(draws[:, 4].min()) >= 0.6 and float(draws[:, 4].max()) <= 1.1
+
+
+def test_log_prob_constants_follow_dtype(rng):
+    """A prior keeps its constants per (dtype, device): calls alternating
+    float64 and float32 on one prior give each dtype's values, equal to a
+    fresh prior's."""
+    tp = _config4_priors(tpri)
+    th = _theta_draws(rng)[4:]
+    for dtype in (torch.float64, torch.float32, torch.float64, torch.float32):
+        t = torch.tensor(th, dtype=dtype)
+        lp = tp.log_prob(t)
+        assert lp.dtype == dtype
+        np.testing.assert_array_equal(lp.numpy(), _config4_priors(tpri).log_prob(t).numpy())
+        draws = tp.sample(torch.Generator().manual_seed(1), (8,), dtype)
+        assert draws.dtype == dtype
+        np.testing.assert_array_equal(
+            draws.numpy(),
+            _config4_priors(tpri).sample(torch.Generator().manual_seed(1), (8,), dtype).numpy())

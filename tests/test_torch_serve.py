@@ -243,12 +243,12 @@ def test_sample_posterior_smc_chees_then_serve():
 
 def test_unported_routes_raise():
     model = GPModel(tk.SquaredExponentialKernel())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_sampler(model, None, torch.Generator(), sampler="nuts")
+    data = configs.config2_se_deriv_nuts(n_points=6, device="cpu").data
+    for sampler in ("hmc", "pt"):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            run_sampler(model, data, torch.Generator(), sampler=sampler, metrics=object())
     with pytest.raises(ValueError, match="unknown sampler"):
         run_sampler(model, None, torch.Generator(), sampler="emcee")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TGP(tk.SquaredExponentialKernel(), device="cpu").optimize_hyperparameters()
     with pytest.raises(ValueError, match="evidence_backend"):
         GPModel(tk.SquaredExponentialKernel(), evidence_backend="pallas")
     with pytest.raises(ValueError, match="cov_backend"):
