@@ -109,6 +109,33 @@ Phases (any failure raises and exits non-zero; no phase falls back):
    gated on finite ELBOs whose last 100 average above the first 100, q's
    mean reported against the golden.
 
+8. (run right after phase 7, before phase 3b's profiler sessions) the
+   rest of the reference's kernel zoo in float64, through the per-chain
+   route (`models.gp.GPModel._per_chain_batch`, chosen by `_evidence_plan`
+   before any launch; its value and gradient replay a CUDA graph per
+   shape), each part with the counts set to 0 just before and read just
+   after (per-chain route calls > 0; launches of either CUDA kernel,
+   calls of either plain version and chains-minor calls 0): (8a) the
+   free-nu Matern (`MaternGeneralKernel`, the reference test's prior) on
+   config 2's data through ``run_sampler(..., "nuts")`` (8 chains,
+   `FREE_NU_RUN`; the reference test's protocol `FREE_NU_PROTOCOL`),
+   gated on R-hat <= 1.1, divergences <= 1e-3 of draws, nu's std > 0.05
+   and every nu inside (1.05, 6), then 64 of its draws card against CPU
+   (value 1e-9, gradient 1e-7 / 1e-9), its peak device memory, and the
+   graph against the eager route (1e-12) with the ms per call of each;
+   (8b) an RQ + SE sum on config 1's data through
+   ``GaussianProcess.optimize_hyperparameters`` (8 random starts and the
+   current point), the same starts through ``map_fit.minimize`` on the
+   CPU: the best start's log posterior within 1e-9 (relative) and its u
+   within 1e-6; (8c) card against CPU at `ZOO_C` thetas (value 1e-9,
+   gradient 1e-7 / 1e-9, ms per call of each): the Gauss, exp and
+   interpolated (6 knots) Gibbs warps on config 4's data, ``2 (SE(x1)
+   RQ(x2)) + noise`` on a 12 x 12 grid with 12 slopes (N = 156, `GRID_C`),
+   a `ChainRuleKernel` SE on config 2's data (also equal to the SE), and a
+   Gibbs-Gauss model under a `SortedUniformJointPrior` (its density in u,
+   through the `OrderedIntervalBijector`); then the CUDA launches of one
+   eager density call of each model (torch.profiler).
+
 The last three lines of standard output are the card line, the kernel
 table as JSON and ``{"ok": true, "device": {...}}``.
 """
@@ -190,6 +217,13 @@ INFERENCE_C = {1: (9,), 2: (8, 64), 3: (16,), 4: (16,)}
 HMC_CUT = (200, 300)
 ROUTE_N_POINTS = 60  # config 4 at 60 points: N = 62 > N_MAX, the route on the card
 ROUTE_C = 256
+# phase 8: the free-nu Matern's NUTS, the reference test's protocol (chains,
+# warmup, samples; tests/test_parity.py:241-246) and the run here, its
+# samples cut from 400 to 300 to keep phase 8 within 150 s (PERF.md, §6)
+FREE_NU_PROTOCOL = (8, 300, 400)
+FREE_NU_RUN = (8, 300, 300)
+ZOO_C = 256  # 8c's thetas per parity call
+GRID_C = 64  # 8c's thetas for the 2-D grid (N = 156)
 
 
 def fail(msg):
@@ -1138,6 +1172,389 @@ def inference_phase(dev, card):
     return out
 
 
+def free_nu_model(dev):
+    """8a's model: the free-nu Matern with the reference test's prior
+    (tests/test_parity.py:241-246), nu on (1.05, 6) for slope data."""
+    from gptools_tpu_torch.models.gp import GPModel
+    from gptools_tpu_torch.ops.kernels import MaternGeneralKernel
+    from gptools_tpu_torch.utils.priors import LogNormalJointPrior, UniformJointPrior
+
+    prior = (LogNormalJointPrior([0.0], [0.75]) * UniformJointPrior([1.05], [6.0])
+             * LogNormalJointPrior([-0.5], [0.75]))
+    return GPModel(MaternGeneralKernel(hyperprior=prior))
+
+
+def routed(tag, fn, card):
+    """``fn()`` with every count of both CUDA kernels and of the route set
+    to 0 just before and read just after: the per-chain route must have
+    carried every density call (its calls > 0), with no launch of either
+    kernel, no call of either plain version and no chains-minor call.
+    Returns (result, wall seconds, per-chain route calls)."""
+    import torch
+
+    from gptools_tpu_torch.ops import cov_cuda as cc
+    from gptools_tpu_torch.ops import evidence_cuda as ec
+
+    torch.cuda.synchronize()
+    ec.reset_counts()
+    cc.reset_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    routes = dict(ec.ROUTE_CALLS)
+    launches = sum(ec.LAUNCHES.values()) + sum(cc.LAUNCHES.values())
+    plain = sum(ec.PLAIN_CALLS.values()) + sum(cc.PLAIN_CALLS.values())
+    print(f"phase8 {tag}: wall {wall:.3f} s; route calls {routes}, CUDA kernel launches "
+          f"{launches}, plain-version calls {plain} ({card})")
+    if routes["per_chain"] <= 0 or routes["chains_minor"] or launches or plain:
+        fail(f"phase8 {tag}: the density did not run through the per-chain route alone")
+    return res, wall, routes["per_chain"]
+
+
+def vag(fn, x):
+    """``fn(x)`` and its gradient in x (cotangent ones), as a sampler asks
+    for them: (value (C,), gradient (C, P))."""
+    import torch
+
+    t = x.detach().clone().requires_grad_(True)
+    v = fn(t)
+    (g,) = torch.autograd.grad(v.sum(), t)
+    return v.detach(), g
+
+
+def card_vs_cpu(tag, fn_card, fn_cpu, x, card, reps=5, value_atol=1e-9):
+    """Phase 8's parity: ``fn`` (a batched density) and its gradient at x on
+    the card (through `routed`) and on the CPU: the value within 1e-9
+    (relative) / ``value_atol`` (absolute; 8a's check holds it to 1e-9
+    relative alone, 8c's lets a log likelihood that crosses zero carry
+    the rounding of its terms), the gradient within 1e-7 (relative) / 1e-9
+    (absolute); the ms per call (value and gradient) of each. Returns the
+    card's ms and the per-chain route calls of one call."""
+    import torch
+
+    (v, g), _, calls = routed(f"{tag} (value and gradient)", lambda: vag(fn_card, x), card)
+    t0 = time.perf_counter()
+    vc, gc = vag(fn_cpu, x.cpu())
+    t_cpu = 1e3 * (time.perf_counter() - t0)
+    v_m = close(v, vc.to(v.device), 1e-9, value_atol)
+    g_m = close(g, gc.to(g.device), 1e-7, 1e-9)
+    t_card = cuda_ms(lambda: vag(fn_card, x), reps=reps, warm=1)
+    print(f"phase8 {tag} C={x.shape[0]} f64: card vs CPU value max |d| - ({value_atol:g} + "
+          f"1e-9|v|) = {v_m:.3e}, grad max |d| - (1e-9 + 1e-7|g|) = {g_m:.3e} (each must be "
+          f"<= 0); "
+          f"{t_card:.3f} ms per call on the card (value and gradient; median of {reps}, "
+          f"CUDA events; {card}), {t_cpu:.1f} ms on the CPU")
+    if not bool(torch.isfinite(v).all()) or not v_m <= 0.0 or not g_m <= 0.0:
+        fail(f"phase8 {tag}: the card and the CPU disagree")
+    return t_card, calls
+
+
+def free_nu_phase(dev, card):
+    """8a: the free-nu Matern on config 2's data under NUTS (`FREE_NU_RUN`),
+    gated on R-hat, divergences and nu's spread and support; then 64 of
+    its draws, card against CPU. Returns {name: (model, data, thetas)} for
+    the launch count at the end of phase 8."""
+    import torch
+
+    from gptools_tpu_torch import configs
+    from gptools_tpu_torch.infer import run_sampler
+    from gptools_tpu_torch.utils.diagnostics import ess_and_rhat
+
+    p2 = configs.config2_se_deriv_nuts(dtype=torch.float64, device=dev)
+    cpu = configs.config2_se_deriv_nuts(dtype=torch.float64, device="cpu")
+    model, model_cpu = free_nu_model(dev), free_nu_model("cpu")
+    if model._evidence_plan(p2.data) is not None:
+        fail("phase8 8a: the evidence kernel's plan took the free-nu Matern")
+    chains, warm, samp = FREE_NU_RUN
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, calls = routed(
+        f"8a free-nu Matern, config 2's data, run_sampler nuts ({chains} chains, {warm} + "
+        f"{samp}; the reference test's protocol is {FREE_NU_PROTOCOL[1]} + "
+        f"{FREE_NU_PROTOCOL[2]}, f64)",
+        lambda: run_sampler(model, p2.data, gen, sampler="nuts", num_chains=chains,
+                            num_warmup=warm, num_samples=samp), card)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    th = res.thetas
+    ess, rhat = ess_and_rhat(th)
+    d = res.diagnostics
+    draws = th.shape[0] * th.shape[1]
+    div = int(d["divergences"])
+    nu = th[..., 1].cpu().numpy()
+    min_ess, max_rhat = float(ess.min()), float(rhat.max())
+    leap = float(d["num_leapfrog_total"]) / draws
+    print(f"phase8 8a: {th.shape[0]} chains x {th.shape[1]} samples: min ESS {min_ess:.1f}, "
+          f"min-ESS/s {min_ess / wall:.3f}, max R-hat {max_rhat:.5f}, divergences "
+          f"{div}/{draws}; nu mean {nu.mean():.4f} std {nu.std():.4f} range "
+          f"[{nu.min():.4f}, {nu.max():.4f}]; {calls} density calls (per-chain route calls), "
+          f"{calls / (warm + samp):.2f} a transition, leapfrogs per transition and chain "
+          f"{leap:.2f} (sampling), mean tree depth {float(d['mean_tree_depth']):.3f}; host "
+          f"wall per density call {1e3 * wall / calls:.2f} ms; peak device memory "
+          f"{peak:.2f} GiB ({card})")
+    if not bool(np.isfinite(th.cpu().numpy()).all()):
+        fail("phase8 8a: non-finite draws")
+    if not max_rhat <= RHAT_GATE:
+        fail(f"phase8 8a: max R-hat {max_rhat} > {RHAT_GATE}")
+    if not div / draws <= DIVERGENCE_FRAC_GATE:
+        fail(f"phase8 8a: divergence fraction {div / draws} > {DIVERGENCE_FRAC_GATE}")
+    if not nu.std() > 0.05 or not (nu.min() > 1.05 and nu.max() < 6.0):
+        fail("phase8 8a: nu did not explore its support (std > 0.05, inside (1.05, 6))")
+    flat = th.reshape(-1, th.shape[-1])
+    th64 = flat[torch.linspace(0, flat.shape[0] - 1, 64, device=dev).long()]
+    card_vs_cpu("8a free-nu Matern at 64 of its draws",
+                lambda t: model.log_marginal_batch(t, p2.data),
+                lambda t: model_cpu.log_marginal_batch(t, cpu.data), th64, card,
+                value_atol=0.0)
+    th8 = flat[:chains]
+    graphed = route_graph_vs_eager("8a free-nu Matern", model, p2.data, th8, card)
+    return {"8a free-nu Matern": (model, p2.data, th8, graphed)}
+
+
+def route_graph_vs_eager(tag, model, data, th, card):
+    """The per-chain route's value and gradient at th as the samplers run
+    it on the card (a replayed CUDA graph) and eagerly (the graphs turned
+    off): the same numbers within 1e-12 (relative; 1e-12 of the largest
+    gradient entry absolute), and the ms per call of each. Returns the
+    graph's ms."""
+    from gptools_tpu_torch.models import gp as gp_mod
+
+    def call():
+        return vag(lambda t: model.log_marginal_batch(t, data), th)
+
+    (v, g), t_graph = call(), cuda_ms(call, reps=10, warm=1)
+    keep = gp_mod._PER_CHAIN_GRAPHS
+    gp_mod._PER_CHAIN_GRAPHS = 0
+    try:
+        (ve, ge), t_eager = call(), cuda_ms(call, reps=3, warm=1)
+    finally:
+        gp_mod._PER_CHAIN_GRAPHS = keep
+    dv = float(((v - ve).abs() / ve.abs()).max())
+    dg = float(((g - ge).abs() / (ge.abs() + ge.abs().max())).max())
+    print(f"phase8 {tag}: per density call (value and gradient, C = {th.shape[0]}) "
+          f"{t_graph:.3f} ms as a CUDA graph (median of 10), {t_eager:.3f} ms eagerly (median "
+          f"of 3; CUDA events; {card}); graph vs eager value max rel {dv:.3e}, gradient "
+          f"{dg:.3e} (tol 1e-12)")
+    if not dv <= 1e-12 or not dg <= 1e-12:
+        fail(f"phase8 {tag}: the CUDA graph and the eager route disagree")
+    return t_graph
+
+
+def zoo_map_phase(dev, card):
+    """8b: the kernel algebra through MAP: an RQ + SE sum on config 1's
+    data through `GaussianProcess.optimize_hyperparameters` on the card
+    (8 random starts and the current point), then the same starts through
+    `map_fit.minimize` on the CPU: the best start's log posterior within
+    1e-9 (relative) and its u within 1e-6."""
+    import torch
+
+    from gptools_tpu_torch import configs
+    from gptools_tpu_torch.infer import map_fit, model_logp
+    from gptools_tpu_torch.models.gp import GaussianProcess
+    from gptools_tpu_torch.ops.kernels import RationalQuadraticKernel, SquaredExponentialKernel
+    from gptools_tpu_torch.utils.priors import GammaJointPrior, LogNormalJointPrior
+
+    def kernel():
+        rq = RationalQuadraticKernel(hyperprior=LogNormalJointPrior([0.0], [0.75])
+                                     * GammaJointPrior([2.0], [1.0])
+                                     * LogNormalJointPrior([-0.5], [0.75]))
+        se = SquaredExponentialKernel(hyperprior=LogNormalJointPrior([-1.0], [0.75])
+                                      * LogNormalJointPrior([0.0], [0.75]))
+        return rq + se
+
+    prob = configs.config1_se_map(dtype=torch.float64, device=dev)
+    gps = {}
+    for where in (dev, "cpu"):
+        gp = GaussianProcess(kernel(), device=where)
+        gp.add_data(prob.data.Xf[:, 0].cpu().numpy(), prob.data.y.cpu().numpy(),
+                    err_y=prob.data.err_y.cpu().numpy())
+        gps[str(where)] = gp
+    gp, gp_cpu = gps[str(dev)], gps["cpu"]
+    if gp.model._evidence_plan(gp.data) is not None:
+        fail("phase8 8b: the evidence kernel's plan took the RQ + SE sum")
+    res, wall, calls = routed(
+        "8b RQ + SE on config 1's data, optimize_hyperparameters (8 random starts + the "
+        "current point, 200 L-BFGS steps, f64)",
+        lambda: gp.optimize_hyperparameters(random_starts=8), card)
+    u0s = map_fit.start_points(gp.model, torch.Generator(device=dev).manual_seed(0), 8,
+                               torch.float64, dev)
+    t0 = time.perf_counter()
+    us_cpu, lps_cpu, _ = map_fit.minimize(model_logp(gp_cpu.model, gp_cpu.data), u0s.cpu())
+    t_cpu = time.perf_counter() - t0
+    best = int(torch.argmax(torch.where(res.converged, res.all_log_posteriors, -np.inf)))
+    lp, lp_cpu = float(res.all_log_posteriors[best]), float(lps_cpu[best])
+    u_card = gp.model.u_of_theta(res.all_thetas[best]).cpu()
+    du = float((us_cpu[best] - u_card).abs().max())
+    print(f"phase8 8b: best start {best}, theta {res.theta.cpu().numpy().tolist()}, log "
+          f"posterior {lp!r} (CPU from the same start {lp_cpu!r}, |d| / |lp| "
+          f"{abs(lp - lp_cpu) / abs(lp):.3e}, tol 1e-9), max |u_cpu - u_card| {du:.3e} (tol "
+          f"1e-6); {calls} density calls, {calls / 200:.2f} an L-BFGS step, host wall per "
+          f"density call {1e3 * wall / calls:.2f} ms; the CPU run {t_cpu:.2f} s ({card})")
+    if not abs(lp - lp_cpu) <= 1e-9 * abs(lp) or not du <= 1e-6:
+        fail("phase8 8b: the card and the CPU reach different optima from the same starts")
+    th9 = res.all_thetas
+    graphed = route_graph_vs_eager("8b RQ + SE", gp.model, gp.data, th9, card)
+    return {"8b RQ + SE": (gp.model, gp.data, th9, graphed)}
+
+
+def grid_problem(device):
+    """8c's 2-D problem: values on a 12 x 12 grid of [0, 1]^2 and the slope
+    along x1 at the 12 points of the edge x1 = 0 (N = 156), under
+    ``2 (SE(x1) RQ(x2)) + white noise`` (the noise through `SumKernel`'s
+    delta terms)."""
+    import torch
+
+    from gptools_tpu_torch.models.dataset import DatasetBuilder
+    from gptools_tpu_torch.models.gp import GPModel
+    from gptools_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(SEED)
+    g = np.linspace(0.0, 1.0, 12)
+    x1, x2 = np.meshgrid(g, g, indexing="ij")
+    X = np.stack([x1.ravel(), x2.ravel()], -1)
+    y = np.sin(3.0 * X[:, 0]) * np.cos(2.0 * X[:, 1]) + 0.05 * rng.standard_normal(144)
+    edge = np.stack([np.zeros(12), g], -1)
+    b = DatasetBuilder(2)
+    b.add(X, y, err_y=0.05)
+    b.add(edge, 3.0 * np.cos(2.0 * g), err_y=0.1, n=[1, 0])
+    kernel = (2.0 * (K.MaskedKernel(K.SquaredExponentialKernel(), 2, [0])
+                     * K.MaskedKernel(K.RationalQuadraticKernel(), 2, [1]))
+              + K.DiagonalNoiseKernel(2))
+    return GPModel(kernel), b.build(torch.float64, device)
+
+
+def zoo_parity_phase(dev, card):
+    """8c: the other kernels, card against CPU, at `ZOO_C` prior-typical
+    thetas (`GRID_C` for the 2-D grid): the Gauss, exp and interpolated
+    Gibbs warps on config 4's data, the 2-D grid model, a chain-rule SE
+    (which must also equal the SE) on config 2's data, and a Gibbs-Gauss
+    model under a sorted-uniform prior, its u through the ordered
+    bijector. Returns {name: (model, data, thetas)}."""
+    import torch
+
+    from gptools_tpu_torch import configs
+    from gptools_tpu_torch.models.gp import GPModel
+    from gptools_tpu_torch.ops import kernels as K
+    from gptools_tpu_torch.utils import priors as PR
+
+    rng = np.random.default_rng(SEED + 8)
+    out = {}
+
+    def u(lo, hi, C=ZOO_C):
+        return rng.uniform(lo, hi, C)
+
+    p4 = configs.config4_gibbs_smc(dtype=torch.float64, device=dev)
+    p4c = configs.config4_gibbs_smc(dtype=torch.float64, device="cpu")
+    xs = p4.data.Xf[:, 0].cpu().numpy()
+    knots = np.linspace(xs.min(), xs.max(), 6)
+    gibbs = {
+        "GibbsKernel1dGauss": (lambda: K.GibbsKernel1dGauss(), [u(0.5, 1.5), u(0.2, 0.6),
+                               u(0.02, 0.1), u(0.03, 0.15), u(0.9, 1.05)]),
+        "GibbsKernel1dExp": (lambda: K.GibbsKernel1dExp(), [u(0.5, 1.5), u(0.05, 0.3),
+                             u(0.5, 2.0)]),
+        "GibbsKernel(InterpolatedWarp, 6 knots)": (
+            lambda: K.GibbsKernel(K.InterpolatedWarp(knots)),
+            [u(0.5, 1.5)] + [u(0.05, 0.5) for _ in knots]),
+    }
+    for name, (make, cols) in gibbs.items():
+        m, mc = GPModel(make()), GPModel(make())
+        th = torch.tensor(np.stack(cols, -1), dtype=torch.float64, device=dev)
+        ms, _ = card_vs_cpu(f"8c {name}, config 4's data (N = {p4.data.num_obs})",
+                            lambda t, m=m: m.log_marginal_batch(t, p4.data),
+                            lambda t, mc=mc: mc.log_marginal_batch(t, p4c.data), th, card)
+        out[f"8c {name}"] = (m, p4.data, th, ms)
+
+    (mg, dg), (mgc, dgc) = grid_problem(dev), grid_problem("cpu")
+    thg = torch.tensor(np.stack([u(0.5, 1.5, GRID_C), u(0.2, 0.6, GRID_C),
+                                 u(0.5, 1.5, GRID_C), u(0.5, 3.0, GRID_C),
+                                 u(0.2, 0.6, GRID_C), u(0.02, 0.2, GRID_C)], -1),
+                       dtype=torch.float64, device=dev)
+    ms, _ = card_vs_cpu(f"8c 2 (SE(x1) RQ(x2)) + noise, 12 x 12 grid + 12 slopes (N = "
+                        f"{dg.num_obs})", lambda t: mg.log_marginal_batch(t, dg),
+                        lambda t: mgc.log_marginal_batch(t, dgc), thg, card)
+    out["8c 2-D grid"] = (mg, dg, thg, ms)
+
+    def chain_rule_se():
+        return K.ChainRuleKernel(
+            lambda v, t: t[..., 0] ** 2 * torch.exp(v),
+            lambda x1, x2, t: -0.5 * torch.sum((x1 - x2) ** 2, -1) / t[..., 1] ** 2,
+            1, ("sigma_f", "l_1"))
+
+    p2 = configs.config2_se_deriv_nuts(dtype=torch.float64, device=dev)
+    p2c = configs.config2_se_deriv_nuts(dtype=torch.float64, device="cpu")
+    mcr, mcrc = GPModel(chain_rule_se()), GPModel(chain_rule_se())
+    thc = torch.tensor(np.stack([u(0.5, 1.5), u(0.3, 1.0)], -1), dtype=torch.float64,
+                       device=dev)
+    ms, _ = card_vs_cpu(f"8c ChainRuleKernel(exp, -r^2 / 2 l^2), config 2's data (N = "
+                        f"{p2.data.num_obs})", lambda t: mcr.log_marginal_batch(t, p2.data),
+                        lambda t: mcrc.log_marginal_batch(t, p2c.data), thc, card)
+    # the SE through the route on the CPU, outside the counted section
+    se = GPModel(K.SquaredExponentialKernel(), evidence_backend="xla")
+    v_cr = mcr.log_marginal_batch(thc, p2.data).cpu()
+    v_se = se.log_marginal_batch(thc.cpu(), p2c.data)
+    d_se = close(v_cr, v_se, 1e-9, 0.0)
+    print(f"phase8 8c: the chain-rule SE against the SE, max |d| - 1e-9|v| = {d_se:.3e} "
+          "(must be <= 0)")
+    if not d_se <= 0.0:
+        fail("phase8 8c: ChainRuleKernel(exp, -r^2 / 2 l^2) differs from the SE")
+    out["8c ChainRuleKernel"] = (mcr, p2.data, thc, ms)
+
+    def sorted_model():
+        prior = (PR.LogNormalJointPrior([0.0], [0.75]) * PR.SortedUniformJointPrior(2, 0.01, 1.0)
+                 * PR.LogNormalJointPrior([-2.3], [0.6]) * PR.UniformJointPrior([0.6], [1.1]))
+        return GPModel(K.GibbsKernel1dGauss(hyperprior=prior))
+
+    ms, msc = sorted_model(), sorted_model()
+    draws = ms.hyperprior.sample(torch.Generator(device=dev).manual_seed(SEED), (ZOO_C,),
+                                 torch.float64)
+    if not bool((draws[:, 2] > draws[:, 1]).all()):
+        fail("phase8 8c: the sorted-uniform prior's draws are not sorted")
+    us = ms.u_of_theta(draws)
+    card_vs_cpu("8c GibbsKernel1dGauss under a SortedUniformJointPrior, log posterior in u "
+                "(OrderedIntervalBijector)", lambda t: ms.log_posterior_u_batch(t, p4.data),
+                lambda t: msc.log_posterior_u_batch(t, p4c.data), us, card)
+    return out
+
+
+def drop_graphs(models):
+    """Free the per-chain route's CUDA graphs (and their memory pools) of
+    the models of a finished part; the launch count below runs eagerly."""
+    import torch
+
+    for m, *_ in models.values():
+        m.__dict__.pop("_route_graphs", None)
+    torch.cuda.empty_cache()
+
+
+def zoo_phase(dev, card):
+    """Phase 8: 8a, 8b and 8c, then the CUDA launches of one eager density
+    call of each model (torch.profiler; phase 3b's sessions follow)."""
+    models = {}
+    walls = []
+    for part in (free_nu_phase, zoo_map_phase, zoo_parity_phase):
+        t0 = time.perf_counter()
+        done_part = part(dev, card)
+        drop_graphs(done_part)
+        models.update(done_part)
+        walls.append(time.perf_counter() - t0)
+    t_a, t_b, t_c = walls
+    print(f"phase8 walls: 8a {t_a:.1f} s, 8b {t_b:.1f} s, 8c {t_c:.1f} s")
+    from gptools_tpu_torch.models import gp as gp_mod
+
+    # launches of one eager call of each model (a graph replay is one
+    # launch of them all)
+    keep = gp_mod._PER_CHAIN_GRAPHS
+    gp_mod._PER_CHAIN_GRAPHS = 0
+    try:
+        for name, (m, data, th, ms) in models.items():
+            _, launches = profiled(lambda: vag(lambda t: m.log_marginal_batch(t, data), th), 1)
+            print(f"phase8 {name}: {launches:.0f} CUDA kernel launches per density call "
+                  f"eagerly (value and gradient, C = {th.shape[0]}; torch.profiler); "
+                  f"{ms:.3f} ms per call as a CUDA graph")
+    finally:
+        gp_mod._PER_CHAIN_GRAPHS = keep
+
+
 KIND_IDS = {"0": "gibbs_tanh", "1": "se", "2": "matern52"}
 
 
@@ -1326,6 +1743,13 @@ def main():
     inference = inference_phase(dev, card)
 
     done("7")
+
+    # ---- phase 8: the rest of the kernel zoo, through the per-chain route -
+    # Host-paced like phase 7, so before phase 3b's profiler sessions; it
+    # launches neither CUDA kernel.
+    zoo_phase(dev, card)
+
+    done("8")
 
     # ---- phase 3b: covariance-kernel parity and times --------------------
     cov_table = {}

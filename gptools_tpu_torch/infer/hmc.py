@@ -248,7 +248,8 @@ def _run_window(transition: Callable, state, generator, length: int, da, inv_mas
     (and, given ``welford``, pooled moments of the new positions).
     ``state`` is (q, logp, grad). Returns the new state, dual averaging,
     Welford state, the divergences (0-d), the transitions' host syncs and,
-    with ``keep``, the per iteration outputs stacked on axis 1."""
+    with ``keep``, the per iteration outputs stacked on axis 1 (the step
+    sizes, one per iteration, on axis 0)."""
     divergences = torch.zeros((), dtype=torch.int64, device=state[0].device)
     outs, syncs = {}, 0
     for _ in range(length):
@@ -263,9 +264,12 @@ def _run_window(transition: Callable, state, generator, length: int, da, inv_mas
         syncs += stats.get("host_syncs", 0)
         if keep:
             for k, x in (("u", q), ("log_prob", logp), *stats.items()):
-                if k not in ("diverged", "host_syncs"):
+                if k != "host_syncs":
                     outs.setdefault(k, []).append(x)
-    stacked = {k: torch.stack(v, 1) for k, v in outs.items()} if keep else None
+            outs.setdefault("eps", []).append(eps)
+    stacked = None
+    if keep:
+        stacked = {k: torch.stack(v, 0 if k == "eps" else 1) for k, v in outs.items()}
     return state, da, welford, divergences, syncs, stacked
 
 
@@ -297,9 +301,8 @@ def sample(
     the chains' mean acceptance throughout; on each slow window the pooled
     Welford variance of the positions becomes the inverse mass (with
     ``adapt_mass``) and dual averaging restarts at the current average.
-    Sampling runs at the averaged step size."""
-    if metrics is not None:
-        raise NotImplementedError("metrics= needs utils/metrics.py: ROADMAP Queue 1 item 15")
+    Sampling runs at the averaged step size. ``metrics``: a
+    `utils.metrics.MetricsLogger` that gets one record per window."""
     logp_and_grad = value_and_grad(logp)
     if transition == "hmc":
         def step(q, lp, g, gen, eps, inv_mass):
@@ -327,11 +330,13 @@ def sample(
     for phase, length in warmup_schedule(num_warmup):
         collect = phase == "slow" and adapt_mass
         welford = welford_init(P, dtype, dev) if collect else None
-        state, da, welford, div, n_sync, _ = _run_window(
+        state, da, welford, div, n_sync, outs = _run_window(
             step, state, generator, length, da, inv_mass, True, welford, target_accept,
-            keep=False)
+            keep=metrics is not None)
         div_warmup = div_warmup + div
         syncs += n_sync
+        if metrics is not None:
+            metrics.log_window(phase, length, outs)
         if collect:
             inv_mass = welford_variance(welford)
             # restart dual averaging around the current step size (Stan)
@@ -343,6 +348,8 @@ def sample(
     _, _, _, divergences, n_sync, outs = _run_window(
         step, state, generator, num_samples, da, inv_mass, False, None, target_accept,
         keep=True)
+    if metrics is not None:
+        metrics.log_window("sampling", num_samples, outs)
     diagnostics = {
         "step_size": eps_final,
         "inv_mass": inv_mass,

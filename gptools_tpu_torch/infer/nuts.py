@@ -215,6 +215,7 @@ def sample(
     adapt_mass: bool = True,
     inv_mass0=None,
     divergence_threshold: float = 1000.0,
+    metrics=None,
 ) -> _hmc.SampleResult:
     """Multi-chain NUTS with pooled warmup adaptation: the driver of
     `infer.hmc.sample` with the NUTS transition. ``logp`` is the batched
@@ -225,5 +226,5 @@ def sample(
         logp, u0, generator, num_warmup=num_warmup, num_samples=num_samples,
         target_accept=target_accept, eps0=eps0, adapt_mass=adapt_mass,
         inv_mass0=inv_mass0, transition="nuts", max_depth=max_depth,
-        divergence_threshold=divergence_threshold,
+        divergence_threshold=divergence_threshold, metrics=metrics,
     )

@@ -137,12 +137,13 @@ def sample_tempered(log_like_fn: Callable, log_prior_fn: Callable, u0: torch.Ten
                     generator: torch.Generator, betas: torch.Tensor, num_samples: int = 1000,
                     num_warmup: int = 500, num_steps: int = 32, target_accept: float = 0.8,
                     eps0: float = 0.1, jitter: float = 0.2,
-                    adapt_mass: bool = True) -> SampleResult:
+                    adapt_mass: bool = True, metrics=None) -> SampleResult:
     """Replica-exchange HMC from ``u0`` (T, C, P) on the ladder ``betas``
     (T,), the densities batched (N, P) -> (N,). Returns the cold rung
     (chains, samples, P) with the reference's diagnostics and
     ``divergences_by_rung`` (the sampling phase's, per rung); ``thetas``
-    None."""
+    None. ``metrics``: a `utils.metrics.MetricsLogger` that gets one record
+    per window (``pt-<phase>``, ``pt-sampling``)."""
     T, C, P = u0.shape
     dtype, dev = u0.dtype, u0.device
     da = hmc.da_init(torch.full((T,), eps0, dtype=dtype, device=dev))
@@ -151,9 +152,10 @@ def sample_tempered(log_like_fn: Callable, log_prior_fn: Callable, u0: torch.Ten
     div_warmup = torch.zeros((), dtype=torch.int64, device=dev)
     swap_fracs = []
 
-    def run(length, adapt, welford, keep):
+    def run(phase, length, adapt, welford, keep):
         nonlocal u, step, da
         outs = {"u": [], "log_prob": [], "accept_prob": []}
+        window = {"eps": [], "accept_prob": [], "diverged": [], "swap_frac": []}
         div = torch.zeros((T,), dtype=torch.int64, device=dev)
         for _ in range(length):
             eps = torch.exp(da.log_eps if adapt else da.log_eps_avg)
@@ -170,12 +172,18 @@ def sample_tempered(log_like_fn: Callable, log_prior_fn: Callable, u0: torch.Ten
                 outs["u"].append(u[0])
                 outs["log_prob"].append(ll[0] + lp[0])  # beta_0 = 1: the posterior
                 outs["accept_prob"].append(stats["accept_prob"])
+            if metrics is not None:
+                for k, x in (("eps", eps), ("accept_prob", stats["accept_prob"]),
+                             ("diverged", stats["diverged"]), ("swap_frac", frac)):
+                    window[k].append(x)
+        if metrics is not None:
+            metrics.log_window(phase, length, {k: torch.stack(v, 0) for k, v in window.items()})
         return welford, div, outs
 
     for phase, length in hmc.warmup_schedule(num_warmup):
         collect = phase == "slow" and adapt_mass
         welford = hmc.welford_init(P, dtype, dev, lead=(T,)) if collect else None
-        welford, div, _ = run(length, True, welford, False)
+        welford, div, _ = run(f"pt-{phase}", length, True, welford, False)
         div_warmup = div_warmup + div.sum()
         if collect:
             # close the slow window: the pooled variance becomes each rung's
@@ -186,7 +194,7 @@ def sample_tempered(log_like_fn: Callable, log_prior_fn: Callable, u0: torch.Ten
     # frozen adaptation; collect the cold rung
     eps_final = torch.exp(da.log_eps_avg)
     da = da._replace(log_eps=torch.log(eps_final))
-    _, divergences, outs = run(num_samples, False, None, True)
+    _, divergences, outs = run("pt-sampling", num_samples, False, None, True)
     acc = torch.stack(outs["accept_prob"], 0)  # (S, T, C)
     diagnostics = {
         "step_size": eps_final,
@@ -224,9 +232,8 @@ def sample(
     """Replica-exchange HMC posterior sampling on ``data``'s device and
     dtype (``num_temps`` plays the reference's ``ntemps``). Returns the cold
     (beta = 1) rung as a `SampleResult`; a sweep costs ``num_steps + 1``
-    batched density calls over ``num_temps * num_chains`` lanes."""
-    if metrics is not None:
-        raise NotImplementedError("metrics= needs utils/metrics.py: ROADMAP Queue 1 item 15")
+    batched density calls over ``num_temps * num_chains`` lanes. ``metrics``:
+    a `utils.metrics.MetricsLogger` that gets one record per window."""
     dtype, dev = data.dtype, data.device
     betas = geometric_ladder(num_temps, beta_min, dtype, dev)
     T, P = betas.shape[0], model.num_free_params
@@ -236,5 +243,6 @@ def sample(
         log_like_fn, log_prior_fn, u0.reshape(T, num_chains, P), generator, betas,
         num_samples=num_samples, num_warmup=num_warmup, num_steps=num_steps,
         target_accept=target_accept, eps0=eps0, jitter=jitter, adapt_mass=adapt_mass,
+        metrics=metrics,
     )
     return _attach_thetas(model, res)

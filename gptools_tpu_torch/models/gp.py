@@ -83,9 +83,18 @@ _AUTO_COV_BACKEND = "fused"
 _COV_BACKENDS = ("auto", "generic", "fused", "pallas")
 _EVIDENCE_BACKENDS = ("auto", "xla", "fused_pallas")
 # The per-chain route evaluates at most this many covariance entries
-# (chains x Q^2) at once: its jvp towers keep several intermediates of that
-# size alive, so a sampler's C is taken in chunks of this budget.
-_PER_CHAIN_ENTRIES = 1 << 22
+# (chains x Q^2) at once, divided by the kernels' ``entry_cost`` (a
+# quadrature's nodes per entry): its jvp towers keep several intermediates
+# of that size alive, so a sampler's C is taken in chunks of this budget.
+# 2^23 (64 MiB per float64 intermediate) keeps the free-nu Matern's
+# 8-chain NUTS at N = 32 (8 x 32^2 x 768 entries) in one chunk; two would
+# double its launches (chip_smoke.py phase 8a prints its peak memory).
+_PER_CHAIN_ENTRIES = 1 << 23
+# On the card the per-chain route's value and gradient run as a CUDA graph,
+# one per (data, shape of thetas), at most this many kept per model:
+# eagerly, each call is thousands of launches paced by the host
+# (chip_smoke.py phase 8 prints both).
+_PER_CHAIN_GRAPHS = 4
 
 
 class Prediction(NamedTuple):
@@ -115,28 +124,68 @@ class _EvidencePlan(NamedTuple):
     noise_mask: Optional[torch.Tensor]  # (N, 1) rows the noise applies to
 
 
-class _ChunkedVag(torch.autograd.Function):
-    """``fn`` over thetas (C, P) in chunks of rows -> (C,), each chunk's
-    value and gradient taken together in the forward; backward ``g * grad``
-    (first order only, as the evidence kernel)."""
+def _chunked_vag(fn, chunk: int, thetas: torch.Tensor):
+    """``fn`` over thetas (C, P) in chunks of rows: (values (C,), their
+    gradients (C, P)), each chunk's value and gradient taken together."""
+    lls, grads = [], []
+    for t in thetas.split(chunk):
+        with torch.enable_grad():
+            t = t.detach().requires_grad_(True)
+            ll = fn(t)
+            (g,) = torch.autograd.grad(ll.sum(), t)
+        lls.append(ll.detach())
+        grads.append(g)
+    return torch.cat(lls), torch.cat(grads)
+
+
+class _Vag(torch.autograd.Function):
+    """``vag(thetas) -> (values, gradients)`` as a function of thetas: the
+    forward keeps the gradient, the backward returns ``g * grad`` (first
+    order only, as the evidence kernel)."""
 
     @staticmethod
-    def forward(ctx, fn, chunk, thetas):
-        lls, grads = [], []
-        for t in thetas.split(chunk):
-            with torch.enable_grad():
-                t = t.detach().requires_grad_(True)
-                ll = fn(t)
-                (g,) = torch.autograd.grad(ll.sum(), t)
-            lls.append(ll.detach())
-            grads.append(g)
-        ctx.save_for_backward(torch.cat(grads))
-        return torch.cat(lls)
+    def forward(ctx, vag, thetas):
+        ll, grad = vag(thetas)
+        ctx.save_for_backward(grad)
+        return ll
 
     @staticmethod
     def backward(ctx, g):
         (grad,) = ctx.saved_tensors
-        return None, None, g[:, None] * grad
+        return None, g[:, None] * grad
+
+
+class _GraphedVag:
+    """`_chunked_vag` of one density on the card, captured once in a CUDA
+    graph for one shape of thetas and replayed for each call: the route's
+    thousands of small launches (jvp towers, the factorization and their
+    backward) become one graph launch. The inputs are copied into a
+    static buffer; the outputs are copied out of the graph's."""
+
+    def __init__(self, fn, chunk: int, like: torch.Tensor):
+        self.static = like.detach().clone()
+        # MAGMA's batched solves (the default behind cholesky_inverse) copy
+        # to the host, which a capture refuses: capture cuSOLVER's instead
+        linalg = torch.backends.cuda.preferred_linalg_library()
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        try:
+            # warm-up off the capture: handles, workspaces, cached constants
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    _chunked_vag(fn, chunk, self.static)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.ll, self.grad = _chunked_vag(fn, chunk, self.static)
+        finally:
+            torch.backends.cuda.preferred_linalg_library(linalg)
+
+    def __call__(self, thetas: torch.Tensor):
+        self.static.copy_(thetas)
+        self.graph.replay()
+        return self.ll.clone(), self.grad.clone()
 
 
 class GPModel:
@@ -261,6 +310,42 @@ class GPModel:
     def log_prior(self, theta_full: torch.Tensor) -> torch.Tensor:
         return self.hyperprior.log_prob(theta_full)
 
+    def _check_matern_nu_support(self, data: Dataset) -> None:
+        """Free-nu Matern with derivative observations needs nu > 1
+        wherever the sampler (the prior's support) or the optimizer
+        (``param_bounds``) can reach: the (1,1) block diverges at
+        coincidence for nu <= 1, so such a run would turn -inf / NaN
+        midway. Warns once per model, on static metadata, as the
+        reference does (a warning, since evaluating at a safe nu stays
+        legitimate)."""
+        from gptools_tpu_torch.ops.kernels import MaternGeneralKernel
+
+        if getattr(self, "_nu_support_warned", False):
+            return
+        if not isinstance(self.kernel, MaternGeneralKernel):
+            return
+        if all(sum(m) == 0 for m in data.multi_indices):
+            return  # value-only data: any nu > 0 is fine
+        i_nu = self.kernel.param_names.index("nu")
+        lo_bound = float(self.kernel.param_bounds[i_nu][0])
+        lo_prior = float(self.kernel.hyperprior.bounds[i_nu][0])
+        lo = min(lo_bound, lo_prior)
+        if lo <= 1.0:
+            import warnings
+
+            self._nu_support_warned = True
+            warnings.warn(
+                "MaternGeneralKernel with derivative observations requires "
+                "nu > 1 wherever the sampler/optimizer can reach (the (1,1) "
+                "covariance block diverges at coincidence for nu <= 1), but "
+                f"the searchable nu lower bound is {lo:.4g} (param_bounds "
+                f"{lo_bound:.4g}, prior support {lo_prior:.4g}). Tighten the "
+                "nu prior/bounds to (1 + delta, hi) — e.g. "
+                "UniformJointPrior([1.01], [30.0]) — or use the fixed "
+                "half-integer MaternKernel.",
+                stacklevel=3,
+            )
+
     def _evidence_plan(self, data: Dataset) -> Optional[_EvidencePlan]:
         """The evidence kernel's constants for one dataset, or None where
         the reference's eligibility rules send the batch evidence to the
@@ -361,6 +446,7 @@ class GPModel:
         docstring)."""
         if thetas.device != data.device:
             raise ValueError(f"thetas on {thetas.device}, data on {data.device}")
+        self._check_matern_nu_support(data)
         if self._evidence_plan(data) is not None:
             thetaT, ev, aux = self._evidence_inputs(thetas.T, data)
             return evidence_cuda.loglik(thetaT, ev, aux)
@@ -410,20 +496,42 @@ class GPModel:
         """The reference's ``vmap(log_marginal)`` for kernels the fused
         builders do not cover and for multi-dimensional data: the batched
         single-theta `log_marginal` over chunks of chains, each chunk at
-        most `_PER_CHAIN_ENTRIES` covariance entries. Under autograd each
-        chunk's gradient is taken at once, so the assembly's intermediates
-        never outlive their chunk."""
+        most `_PER_CHAIN_ENTRIES` covariance entries over the kernels'
+        ``entry_cost``. Under autograd each chunk's gradient is taken at
+        once, so the assembly's intermediates never outlive their chunk;
+        on the card the value and gradient of all chunks replay a CUDA
+        graph (`_GraphedVag`) captured at the first call of each shape."""
         evidence_cuda.ROUTE_CALLS["per_chain"] += 1
-        chunk = max(1, _PER_CHAIN_ENTRIES // data.num_latent**2)
-        if thetas.shape[0] <= chunk:
-            return self.log_marginal(thetas, data)
+        cost = self.kernel.entry_cost + (
+            self.noise_kernel.entry_cost if self.noise_kernel is not None else 0)
+        chunk = max(1, _PER_CHAIN_ENTRIES // (cost * data.num_latent**2))
 
         def fn(t):
             return self.log_marginal(t, data)
 
         if torch.is_grad_enabled() and thetas.requires_grad:
-            return _ChunkedVag.apply(fn, chunk, thetas)
+            if thetas.is_cuda and _PER_CHAIN_GRAPHS:
+                return _Vag.apply(self._graphed_vag(fn, chunk, thetas, data), thetas)
+            if thetas.shape[0] > chunk:
+                return _Vag.apply(lambda t: _chunked_vag(fn, chunk, t), thetas)
+        if thetas.shape[0] <= chunk:
+            return fn(thetas)
         return torch.cat([fn(t) for t in thetas.split(chunk)])
+
+    def _graphed_vag(self, fn, chunk: int, thetas: torch.Tensor, data: Dataset):
+        """The `_GraphedVag` of this model's route on ``data`` for the shape
+        and dtype of thetas, captured at its first use (a later change of
+        the model's metadata does not reach it); at most
+        `_PER_CHAIN_GRAPHS` kept (the oldest dropped)."""
+        graphs = self.__dict__.setdefault("_route_graphs", {})
+        key = (id(data), tuple(thetas.shape), thetas.dtype, thetas.device)
+        entry = graphs.get(key)
+        if entry is None or entry[0] is not data:
+            if len(graphs) >= _PER_CHAIN_GRAPHS:
+                graphs.pop(next(iter(graphs)))
+            entry = (data, _GraphedVag(fn, chunk, thetas))
+            graphs[key] = entry
+        return entry[1]
 
     def log_posterior_batch(self, thetas: torch.Tensor, data: Dataset) -> torch.Tensor:
         lp = self.log_prior(thetas)
@@ -467,6 +575,7 @@ class GPModel:
     def _latent_cov(self, theta, data: Dataset, include_noise: bool):
         """K over the data's points: the kernel (and the noise kernel if
         asked), by ``cov_backend``."""
+        self._check_matern_nu_support(data)
         backend = self.cov_backend
         if backend == "auto":
             backend = _AUTO_COV_BACKEND

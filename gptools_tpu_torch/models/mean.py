@@ -1,21 +1,21 @@
 """Parametric prior mean functions, chains-minor.
 
 Counterpart of `gptools_tpu.models.mean` (`MeanFunction`,
-`ConstantMeanFunction`, `LinearMeanFunction`, `MtanhMeanFunction1d`) and of
+`ConstantMeanFunction`, `LinearMeanFunction`, `MtanhMeanFunction1d`,
+`SumMeanFunction` through ``m1 + m2``, `ArbitraryMeanFunction`) and of
 the mean half of `gptools_tpu.ops.assemble` (`mean_vector`). Metadata
 (names, bounds, initial values, fixed flags, hyperprior) follows the
 reference. Where the reference evaluates one parameter vector per call
 under ``vmap``, here ``_scalar(X (N, D), thetaT (P, C)) -> (N, C)`` takes
 the whole chain batch, and `mean_vector` takes each derivative order by
 the forward-mode towers of `ops.derivs` in x (each row of the output
-depends on its own row of X only). `SumMeanFunction` and
-`ArbitraryMeanFunction` are ROADMAP Queue 1 item 11.
+depends on its own row of X only).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -27,6 +27,8 @@ __all__ = [
     "ConstantMeanFunction",
     "LinearMeanFunction",
     "MtanhMeanFunction1d",
+    "SumMeanFunction",
+    "ArbitraryMeanFunction",
     "mean_vector",
 ]
 
@@ -82,6 +84,50 @@ class MeanFunction:
     def _scalar(self, X: torch.Tensor, thetaT: torch.Tensor) -> torch.Tensor:
         """Mean values at points X (N, D) for chains thetaT (P, C) -> (N, C)."""
         raise NotImplementedError
+
+    def __add__(self, other):
+        if isinstance(other, MeanFunction):
+            return SumMeanFunction(self, other)
+        return NotImplemented
+
+
+class SumMeanFunction(MeanFunction):
+    """``m1 + m2``: parameters ``m1.*`` then ``m2.*``, the prior the
+    product of the parts' (or the one that exists)."""
+
+    def __init__(self, m1: MeanFunction, m2: MeanFunction):
+        if m1.num_dim != m2.num_dim:
+            raise ValueError("summed means must share num_dim")
+        self.m1, self.m2 = m1, m2
+        if m1.hyperprior is not None and m2.hyperprior is not None:
+            prior = m1.hyperprior * m2.hyperprior
+        else:
+            prior = m1.hyperprior or m2.hyperprior
+        super().__init__(
+            m1.num_dim,
+            tuple(f"m1.{n}" for n in m1.param_names) + tuple(f"m2.{n}" for n in m2.param_names),
+            initial_params=m1.initial_params + m2.initial_params,
+            fixed_params=m1.fixed_params + m2.fixed_params,
+            param_bounds=m1.param_bounds + m2.param_bounds,
+            hyperprior=prior,
+        )
+
+    def _scalar(self, X, thetaT):
+        p1 = self.m1.num_params
+        return self.m1._scalar(X, thetaT[:p1]) + self.m2._scalar(X, thetaT[p1:])
+
+
+class ArbitraryMeanFunction(MeanFunction):
+    """A mean given as a torch callable ``fn(x, theta)`` with the kernels'
+    broadcast convention: points x (..., D) against parameters (..., P)
+    -> (...)."""
+
+    def __init__(self, fn: Callable, num_dim: int, param_names, **kw):
+        self.fn = fn
+        super().__init__(num_dim, param_names, **kw)
+
+    def _scalar(self, X, thetaT):
+        return self.fn(X[:, None, :], thetaT.T[None, :, :])
 
 
 class ConstantMeanFunction(MeanFunction):

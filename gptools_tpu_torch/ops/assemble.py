@@ -6,8 +6,10 @@ whole (N1, N2) grid and mask-combined by the order ids. The reference
 ``vmap``s the scalar over points and hyperparameters; here the scalar
 broadcasts instead: points enter as (N1, 1, D) and (1, N2, D), and a theta
 batch (B, P) as (B, 1, 1, P), so a batch of B thetas gives (B, N1, N2) in
-one evaluation. The mean half (``mean_vector``) is
-`gptools_tpu_torch.models.mean.mean_vector`.
+one evaluation. Where every order is 0 or the first derivative along one
+dimension (value and slope observations), all four blocks come from one
+nested tower (`derivs.first_order_blocks`). The mean half
+(``mean_vector``) is `gptools_tpu_torch.models.mean.mean_vector`.
 """
 
 from __future__ import annotations
@@ -17,12 +19,24 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from gptools_tpu_torch.models.dataset import MultiIndex
+from gptools_tpu_torch.ops import derivs
 
 __all__ = ["cov_matrix", "delta_matrix", "all_pairs"]
 
 
 def all_pairs(num_a: int, num_b: int) -> Tuple[Tuple[int, int], ...]:
     return tuple((i, j) for i in range(num_a) for j in range(num_b))
+
+
+def _first_order_dim(multi_indices) -> Optional[int]:
+    """The dimension d when the table holds the value order and e_d and
+    nothing else, else None."""
+    if len(multi_indices) != 2:
+        return None
+    zero, first = sorted(multi_indices, key=sum)
+    if sum(zero) != 0 or sum(first) != 1:
+        return None
+    return first.index(1)
 
 
 def _theta_grid(theta: torch.Tensor) -> torch.Tensor:
@@ -58,6 +72,13 @@ def cov_matrix(
         if len(multi_indices) == 1:
             (a,) = multi_indices
             K = kernel.block_fn(a, a)(x1, x2, th).to(dtype).expand(shape)
+        elif (d := _first_order_dim(multi_indices)) is not None:
+            vals = derivs.first_order_blocks(kernel.smooth_scalar, d)(x1, x2, th)
+            order = [sum(m) for m in multi_indices]  # 0 or 1 per table id
+            for aid, bid in pairs:
+                block = vals[order[aid] + 2 * order[bid]].to(dtype)
+                mask = (nid1[:, None] == aid) & (nid2[None, :] == bid)
+                K = K + torch.where(mask, block, 0.0)
         else:
             for aid, bid in pairs:
                 fn = kernel.block_fn(multi_indices[aid], multi_indices[bid])

@@ -11,7 +11,12 @@ and ``x2 (..., D)`` broadcast against each other and against the
 hyperparameters, and each output entry depends on its own rows only. A
 tangent that is one in dimension ``dim`` of every row then gives, in one
 jvp, the partial derivative of every entry at once; this takes the place
-of the reference's ``vmap`` over points. `normalize_multi_index` lives in
+of the reference's ``vmap`` over points. Only the argument being
+differentiated carries a tangent (the others are closed over), so the
+subexpressions of the hyperparameters alone cost no tangent work. Where a
+covariance needs first derivatives along one dimension only,
+`first_order_blocks` takes the value, both first partials and the mixed
+one from a single nested tower. `normalize_multi_index` lives in
 `gptools_tpu_torch.models.dataset`.
 """
 
@@ -31,6 +36,7 @@ __all__ = [
     "mixed_partial",
     "kernel_block_fn",
     "mean_block_fn",
+    "first_order_blocks",
 ]
 
 
@@ -40,15 +46,37 @@ def directional_derivative(fn: Callable, argnum: int, dim: int) -> Callable:
     forward-mode tower)."""
 
     def dfn(*args):
-        tangents = []
-        for i, a in enumerate(args):
-            t = torch.zeros_like(a)
-            if i == argnum:
-                t[..., dim] = 1.0
-            tangents.append(t)
-        return torch.func.jvp(fn, tuple(args), tuple(tangents))[1]
+        x = args[argnum]
+
+        def along(a):
+            return fn(*args[:argnum], a, *args[argnum + 1:])
+
+        return torch.func.jvp(along, (x,), (_one_hot(x, dim),))[1]
 
     return dfn
+
+
+def _one_hot(x: torch.Tensor, dim: int) -> torch.Tensor:
+    t = torch.zeros_like(x)
+    t[..., dim] = 1.0
+    return t
+
+
+def first_order_blocks(scalar_fn: Callable, dim: int) -> Callable:
+    """``(x1, x2, theta) -> (k, d_x1 k, d_x2 k, d_x1 d_x2 k)``, the
+    derivatives along dimension ``dim``, from one jvp over x2 of a jvp over
+    x1: the four covariance blocks of observations of orders 0 and e_dim,
+    sharing every intermediate (separate towers would evaluate the kernel
+    four times and its first derivatives three)."""
+
+    def blocks(x1, x2, theta):
+        def inner(b):
+            return torch.func.jvp(lambda a: scalar_fn(a, b, theta), (x1,), (_one_hot(x1, dim),))
+
+        (k, d1), (d2, d12) = torch.func.jvp(inner, (x2,), (_one_hot(x2, dim),))
+        return k, d1, d2, d12
+
+    return blocks
 
 
 def mixed_partial(fn: Callable, orders: Sequence[MultiIndex]) -> Callable:

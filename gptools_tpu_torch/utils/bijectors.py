@@ -1,11 +1,10 @@
 """Bijectors from the unconstrained sampler space to constrained hyperparameters.
 
-Counterpart of `gptools_tpu.utils.bijectors` (the subset configs 2-4 use).
-Every method works on a batch directly: ``u`` and ``x`` have shape
-``(..., dim)`` and ``log_det_jac`` reduces the last axis, so a ``(C, P)``
-stack of chains needs no vmap. The other bijectors of the reference
-(`ExpBijector`, `NegExpBijector`, `OrderedIntervalBijector`) are ROADMAP
-Queue 1 item 11.
+Counterpart of `gptools_tpu.utils.bijectors`. Every method works on a
+batch directly: ``u`` and ``x`` have shape ``(..., dim)`` and
+``log_det_jac`` reduces the last axis, so a ``(C, P)`` stack of chains
+needs no vmap (`OrderedIntervalBijector` takes its recursion in closed
+form, by a cumulative sum over the last axis).
 """
 
 from __future__ import annotations
@@ -19,8 +18,11 @@ import torch.nn.functional as F
 __all__ = [
     "Bijector",
     "IdentityBijector",
+    "ExpBijector",
     "SoftplusBijector",
     "SigmoidBijector",
+    "NegExpBijector",
+    "OrderedIntervalBijector",
     "ConcatBijector",
     "interval_bijector",
     "bijector_from_bounds",
@@ -60,6 +62,23 @@ class IdentityBijector(Bijector):
 
     def log_det_jac(self, u):
         return torch.zeros(u.shape[:-1], dtype=u.dtype, device=u.device)
+
+
+class ExpBijector(Bijector):
+    """``x = lo + exp(u)`` onto ``(lo, inf)``."""
+
+    def __init__(self, lo: float = 0.0, dim: int = 1):
+        self.lo = float(lo)
+        self.dim = dim
+
+    def forward(self, u):
+        return self.lo + torch.exp(u)
+
+    def inverse(self, x):
+        return torch.log(torch.clamp(x - self.lo, min=_EPS))
+
+    def log_det_jac(self, u):
+        return u.sum(-1)
 
 
 class SoftplusBijector(Bijector):
@@ -105,6 +124,56 @@ class SigmoidBijector(Bijector):
         ).sum(-1)
 
 
+class NegExpBijector(Bijector):
+    """``x = hi - exp(u)`` onto ``(-inf, hi)``."""
+
+    def __init__(self, hi: float = 0.0, dim: int = 1):
+        self.hi = float(hi)
+        self.dim = dim
+
+    def forward(self, u):
+        return self.hi - torch.exp(u)
+
+    def inverse(self, x):
+        return torch.log(torch.clamp(self.hi - x, min=_EPS))
+
+    def log_det_jac(self, u):
+        return u.sum(-1)
+
+
+class OrderedIntervalBijector(Bijector):
+    """``u in R^k`` onto ``lo < x_1 < ... < x_k < hi`` by the reference's
+    stick breaking, ``x_i = x_{i-1} + (hi - x_{i-1}) sigmoid(u_i)`` from
+    ``x_0 = lo``. Since ``hi - x_i = (hi - x_{i-1}) sigmoid(-u_i)``, the
+    recursion has the closed form ``x_i = hi - (hi - lo) exp(S_i)`` with
+    ``S_i = sum_{j<=i} log sigmoid(-u_j)``, and the Jacobian is
+    lower-triangular: ``log|det J| = sum_i [log(hi - lo) + S_{i-1} + log
+    sigmoid(u_i) + log sigmoid(-u_i)]``. A cumulative sum over the last
+    axis computes both for a whole batch."""
+
+    def __init__(self, lo: float, hi: float, dim: int):
+        if not (hi > lo):
+            raise ValueError(f"need hi > lo, got ({lo}, {hi})")
+        self.lo = float(lo)
+        self.hi = float(hi)
+        self.dim = dim
+
+    def forward(self, u):
+        S = torch.cumsum(F.logsigmoid(-u), -1)
+        return self.hi - (self.hi - self.lo) * torch.exp(S)
+
+    def inverse(self, x):
+        lo = torch.full_like(x[..., :1], self.lo)
+        prev = torch.cat([lo, x[..., :-1]], -1)
+        p = torch.clamp((x - prev) / (self.hi - prev), _EPS, 1.0 - 1e-7)
+        return torch.log(p) - torch.log1p(-p)
+
+    def log_det_jac(self, u):
+        ls_neg = F.logsigmoid(-u)
+        S_prev = torch.cumsum(ls_neg, -1) - ls_neg  # S_{i-1}, with S_0 = 0
+        return (math.log(self.hi - self.lo) + S_prev + F.logsigmoid(u) + ls_neg).sum(-1)
+
+
 class ConcatBijector(Bijector):
     """Apply a sequence of bijectors to consecutive slices of the last axis."""
 
@@ -123,20 +192,26 @@ class ConcatBijector(Bijector):
         ]
 
     def forward(self, u):
+        if not self.parts:  # an empty block (a kernel with no parameters)
+            return u
         return torch.cat([p.forward(s) for p, s in self._slices(u)], dim=-1)
 
     def inverse(self, x):
+        if not self.parts:
+            return x
         return torch.cat([p.inverse(s) for p, s in self._slices(x)], dim=-1)
 
     def log_det_jac(self, u):
         parts = [p.log_det_jac(s) for p, s in self._slices(u)]
+        if not parts:
+            return torch.zeros(u.shape[:-1], dtype=u.dtype, device=u.device)
         return sum(parts[1:], parts[0])
 
 
 def interval_bijector(lo: float, hi: float) -> Bijector:
     """The canonical scalar bijector for one interval (as the reference:
-    sigmoid on a finite box, softplus on a half-line, identity on the
-    whole line)."""
+    sigmoid on a finite box, softplus on (lo, inf), negative exp on (-inf,
+    hi), identity on the whole line)."""
     lo_f = lo if lo is not None else -math.inf
     hi_f = hi if hi is not None else math.inf
     finite_lo = math.isfinite(lo_f)
@@ -146,9 +221,7 @@ def interval_bijector(lo: float, hi: float) -> Bijector:
     if finite_lo:
         return SoftplusBijector(lo_f)
     if finite_hi:
-        raise NotImplementedError(
-            f"interval ({lo_f}, {hi_f}) needs NegExpBijector: ROADMAP Queue 1 item 11"
-        )
+        return NegExpBijector(hi_f)
     return IdentityBijector()
 
 

@@ -1,11 +1,15 @@
 """Hyperpriors over (slices of) the flat hyperparameter vector.
 
-Counterpart of `gptools_tpu.utils.priors` (the subset configs 2-4 use:
-product, uniform, normal and log-normal priors). ``log_prob`` takes ``theta`` of shape
-``(..., dim)`` and returns ``theta.shape[:-1]``; evaluating outside the
-support gives ``-inf`` with a finite gradient. ``sample`` draws from an
-explicit `torch.Generator` on that generator's device. The rest of the
-prior zoo is ROADMAP Queue 1 item 11.
+Counterpart of `gptools_tpu.utils.priors`: product, uniform, normal,
+log-normal, gamma (two parameterizations), exponential, sorted-uniform
+(and its core/edge name) and independent priors over the 1-D
+distributions `Uniform`, `Normal`, `LogNormal`, `Gamma` and
+`Exponential`. ``log_prob`` takes ``theta`` of shape ``(..., dim)`` and
+returns ``theta.shape[:-1]``; evaluating outside the support gives
+``-inf`` with a finite gradient. ``sample`` draws from an explicit
+`torch.Generator` on that generator's device; gamma draws come from the
+generator's own normals and uniforms (`standard_gamma`), since torch's
+gamma sampler takes no generator.
 """
 
 from __future__ import annotations
@@ -24,6 +28,18 @@ __all__ = [
     "UniformJointPrior",
     "NormalJointPrior",
     "LogNormalJointPrior",
+    "GammaJointPrior",
+    "GammaJointPriorAlt",
+    "ExponentialJointPrior",
+    "SortedUniformJointPrior",
+    "CoreEdgeJointPrior",
+    "IndependentJointPrior",
+    "Uniform",
+    "Normal",
+    "LogNormal",
+    "Gamma",
+    "Exponential",
+    "standard_gamma",
 ]
 
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
@@ -67,13 +83,16 @@ class JointPrior:
     def _consts(self, names: tuple, dtype: torch.dtype, device) -> tuple:
         """The tuple fields ``names`` as tensors of ``dtype`` on ``device``,
         made once per (dtype, device): a tensor made from a list on each
-        call is a host-to-device copy, which waits for the card's queue."""
+        call is a host-to-device copy, which waits for the card's queue.
+        Made outside any `torch.func` transform, whose level a cached
+        tensor must not belong to."""
         cache = self.__dict__.setdefault("_const_cache", {})
         key = (names, dtype, torch.device(device))
         if key not in cache:
-            cache[key] = tuple(
-                torch.tensor(getattr(self, n), dtype=dtype, device=device) for n in names
-            )
+            with torch._C._DisableFuncTorch():
+                cache[key] = tuple(
+                    torch.tensor(getattr(self, n), dtype=dtype, device=device) for n in names
+                )
         return cache[key]
 
     def bijector(self) -> bij.Bijector:
@@ -217,3 +236,192 @@ class LogNormalJointPrior(JointPrior):
     @property
     def bounds(self):
         return [(0.0, math.inf)] * self.dim
+
+
+# Marsaglia-Tsang proposals per draw: each is accepted with probability
+# above 0.95, so all 12 fail with probability below 0.05**12 = 2.4e-16
+# (such a draw is NaN)
+_GAMMA_ROUNDS = 12
+
+
+def standard_gamma(generator: torch.Generator, a: torch.Tensor) -> torch.Tensor:
+    """Gamma(a, 1) draws, one per entry of ``a`` (on the generator's
+    device), by Marsaglia and Tsang's method from the generator's own
+    normals and uniforms: `_GAMMA_ROUNDS` proposals per entry in one batch,
+    the first accepted one kept; for a < 1 a draw at a + 1 times
+    ``U^(1/a)``. Deterministic for a given generator state."""
+    dev, dtype = generator.device, a.dtype
+    a = a.to(dev)
+    boost = a < 1.0
+    d = torch.where(boost, a + 1.0, a) - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    shape = (_GAMMA_ROUNDS,) + tuple(a.shape)
+    z = torch.randn(shape, generator=generator, dtype=dtype, device=dev)
+    lu = torch.log(torch.rand(shape, generator=generator, dtype=dtype, device=dev))
+    v = (1.0 + c * z) ** 3
+    log_v = torch.log(torch.clamp(v, min=torch.finfo(dtype).tiny))
+    ok = (v > 0) & (lu < 0.5 * z * z + d - d * v + d * log_v)
+    first = torch.argmax(ok.to(torch.uint8), 0, keepdim=True)  # first accepted round
+    g = torch.take_along_dim(d * v, first, 0)[0]
+    g = torch.where(ok.any(0), g, math.nan)
+    ub = torch.rand(tuple(a.shape), generator=generator, dtype=dtype, device=dev)
+    return torch.where(boost, g * ub ** (1.0 / a), g)
+
+
+class GammaJointPrior(JointPrior):
+    """Independent gammas on (0, inf), shape ``a`` and scale ``b``:
+    ``p(x) = x^(a-1) exp(-x/b) / (Gamma(a) b^a)``."""
+
+    def __init__(self, a, b, dim: int | None = None):
+        k = _dim_of(a, b, dim)
+        self.a = _as_tuple(a, k)
+        self.b = _as_tuple(b, k)
+        if any(v <= 0 for v in self.a) or any(v <= 0 for v in self.b):
+            raise ValueError("a, b must be positive")
+        self.dim = k
+        self.log_norm = tuple(-math.lgamma(ai) - ai * math.log(bi)
+                              for ai, bi in zip(self.a, self.b))
+
+    def log_prob(self, theta):
+        a, b, norm = self._consts(("a", "b", "log_norm"), theta.dtype, theta.device)
+        pos = theta > 0
+        x = torch.where(pos, theta, torch.ones_like(theta))
+        lp = ((a - 1.0) * torch.log(x) - x / b + norm).sum(-1)
+        return torch.where(pos.all(-1), lp, torch.full_like(lp, -math.inf))
+
+    def sample(self, generator, shape, dtype):
+        a, b = self._consts(("a", "b"), dtype, generator.device)
+        return standard_gamma(generator, a.expand(tuple(shape) + (self.dim,))) * b
+
+    @property
+    def bounds(self):
+        return [(0.0, math.inf)] * self.dim
+
+
+class GammaJointPriorAlt(GammaJointPrior):
+    """Gamma by mode ``m`` and standard deviation ``s``: ``b = (-m +
+    sqrt(m^2 + 4 s^2)) / 2``, ``a = 1 + m / b``."""
+
+    def __init__(self, mode, std, dim: int | None = None):
+        k = _dim_of(mode, std, dim)
+        m = _as_tuple(mode, k)
+        s = _as_tuple(std, k)
+        b = tuple((-mi + math.sqrt(mi * mi + 4 * si * si)) / 2.0 for mi, si in zip(m, s))
+        a = tuple(1.0 + mi / bi for mi, bi in zip(m, b))
+        super().__init__(a, b, dim=k)
+        self.mode = m
+        self.std = s
+
+
+class ExponentialJointPrior(GammaJointPrior):
+    """Independent exponentials of rate ``rate`` (a gamma with a = 1)."""
+
+    def __init__(self, rate, dim: int | None = None):
+        k = dim if dim is not None else (len(rate) if np.ndim(rate) > 0 else 1)
+        r = _as_tuple(rate, k)
+        super().__init__((1.0,) * k, tuple(1.0 / ri for ri in r), dim=k)
+        self.rate = r
+
+
+class SortedUniformJointPrior(JointPrior):
+    """Uniform over ``lb < x_1 < ... < x_k < ub``: density ``k! / (ub -
+    lb)^k`` there, ``-inf`` elsewhere; its bijector is the
+    `OrderedIntervalBijector`, so a sampler never proposes an unordered
+    point."""
+
+    def __init__(self, dim: int, lb: float, ub: float):
+        if not (ub > lb):
+            raise ValueError("need ub > lb")
+        self.dim = int(dim)
+        self.lb = float(lb)
+        self.ub = float(ub)
+
+    def log_prob(self, theta):
+        inside = (
+            (theta >= self.lb).all(-1)
+            & (theta <= self.ub).all(-1)
+            & (torch.diff(theta, dim=-1) > 0).all(-1)
+        )
+        lp = math.lgamma(self.dim + 1) - self.dim * math.log(self.ub - self.lb)
+        full = torch.full(inside.shape, lp, dtype=theta.dtype, device=theta.device)
+        return torch.where(inside, full, -math.inf)
+
+    def sample(self, generator, shape, dtype):
+        u = torch.rand(tuple(shape) + (self.dim,), generator=generator, dtype=dtype,
+                       device=generator.device)
+        return torch.sort(self.lb + (self.ub - self.lb) * u, dim=-1).values
+
+    @property
+    def bounds(self):
+        return [(self.lb, self.ub)] * self.dim
+
+    def bijector(self):
+        return bij.OrderedIntervalBijector(self.lb, self.ub, self.dim)
+
+
+class CoreEdgeJointPrior(SortedUniformJointPrior):
+    """The reference's sorted two-block prior for (core, edge) length-scale
+    pairs: a sorted uniform over the common interval."""
+
+
+class _Dist1D:
+    """A scalar distribution for `IndependentJointPrior`: ``log_pdf`` of
+    x (...) -> (...), ``sample`` -> ``shape``."""
+
+    bounds: tuple
+
+    def log_pdf(self, x):
+        return self._p.log_prob(x[..., None])
+
+    def sample(self, generator, shape, dtype):
+        return self._p.sample(generator, shape, dtype)[..., 0]
+
+
+class Uniform(_Dist1D):
+    def __init__(self, lo: float, hi: float):
+        self._p = UniformJointPrior([lo], [hi])
+        self.bounds = (lo, hi)
+
+
+class Normal(_Dist1D):
+    def __init__(self, mu: float, sigma: float):
+        self._p = NormalJointPrior([mu], [sigma])
+        self.bounds = (-math.inf, math.inf)
+
+
+class LogNormal(_Dist1D):
+    def __init__(self, mu: float, sigma: float):
+        self._p = LogNormalJointPrior([mu], [sigma])
+        self.bounds = (0.0, math.inf)
+
+
+class Gamma(_Dist1D):
+    def __init__(self, a: float, b: float):
+        self._p = GammaJointPrior([a], [b])
+        self.bounds = (0.0, math.inf)
+
+
+class Exponential(_Dist1D):
+    def __init__(self, rate: float):
+        self._p = ExponentialJointPrior([rate])
+        self.bounds = (0.0, math.inf)
+
+
+class IndependentJointPrior(JointPrior):
+    """Product of the scalar distributions ``univariates``, one per
+    parameter."""
+
+    def __init__(self, univariates: Sequence[_Dist1D]):
+        self.univariates = tuple(univariates)
+        self.dim = len(self.univariates)
+
+    def log_prob(self, theta):
+        lps = [d.log_pdf(theta[..., i]) for i, d in enumerate(self.univariates)]
+        return sum(lps[1:], lps[0])
+
+    def sample(self, generator, shape, dtype):
+        return torch.stack([d.sample(generator, shape, dtype) for d in self.univariates], -1)
+
+    @property
+    def bounds(self):
+        return [d.bounds for d in self.univariates]

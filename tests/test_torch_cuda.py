@@ -454,3 +454,121 @@ def test_per_chain_route_on_card(dev, monkeypatch):
         out[d.type] = (ll.detach().cpu().numpy(), g.cpu().numpy())
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-9)
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-9, atol=1e-9)
+
+
+def _zoo_models():
+    """Phase 8c's models, as (name, model builder, dataset builder, theta
+    sampler, density): Gibbs Gauss / exp / interpolated on config 4's data,
+    a chain-rule SE on config 2's data, a Gibbs-Gauss model under a
+    sorted-uniform prior (its density in u, through the ordered bijector),
+    a 2-D grid under 2 (SE(x1) RQ(x2)) + noise and the free-nu Matern."""
+    from gptools_tpu_torch.ops import kernels as K
+    from gptools_tpu_torch.utils import priors as PR
+
+    def cfg(n):
+        return lambda d: configs.ALL_CONFIGS[n](dtype=torch.float64, device=d).data
+
+    def grid(d):
+        g = np.linspace(0.0, 1.0, 6)
+        x1, x2 = np.meshgrid(g, g, indexing="ij")
+        X = np.stack([x1.ravel(), x2.ravel()], -1)
+        b = DatasetBuilder(2)
+        b.add(X, np.sin(3.0 * X[:, 0]) * np.cos(2.0 * X[:, 1]), err_y=0.05)
+        b.add(np.stack([np.zeros(6), g], -1), 3.0 * np.cos(2.0 * g), err_y=0.1, n=[1, 0])
+        return b.build(torch.float64, d)
+
+    def sorted_gauss():
+        prior = (PR.LogNormalJointPrior([0.0], [0.75]) * PR.SortedUniformJointPrior(2, 0.01, 1.0)
+                 * PR.LogNormalJointPrior([-2.3], [0.6]) * PR.UniformJointPrior([0.6], [1.1]))
+        return GPModel(K.GibbsKernel1dGauss(hyperprior=prior))
+
+    def nu_model():
+        prior = (PR.LogNormalJointPrior([0.0], [0.75]) * PR.UniformJointPrior([1.05], [6.0])
+                 * PR.LogNormalJointPrior([-0.5], [0.75]))
+        return GPModel(K.MaternGeneralKernel(hyperprior=prior))
+
+    def lm(m, t, data):
+        return m.log_marginal_batch(t, data)
+
+    def lpu(m, t, data):
+        return m.log_posterior_u_batch(t, data)
+
+    knots = np.linspace(0.0, 1.1, 6)
+    return {
+        "gibbs_gauss": (lambda: GPModel(K.GibbsKernel1dGauss()), cfg(4),
+                        [(0.5, 1.5), (0.2, 0.6), (0.02, 0.1), (0.03, 0.15), (0.9, 1.05)], lm),
+        "gibbs_exp": (lambda: GPModel(K.GibbsKernel1dExp()), cfg(4),
+                      [(0.5, 1.5), (0.05, 0.3), (0.5, 2.0)], lm),
+        "gibbs_interpolated": (lambda: GPModel(K.GibbsKernel(K.InterpolatedWarp(knots))),
+                               cfg(4), [(0.5, 1.5)] + [(0.05, 0.5)] * 6, lm),
+        "chain_rule_se": (lambda: GPModel(K.ChainRuleKernel(
+            lambda v, t: t[..., 0] ** 2 * torch.exp(v),
+            lambda x1, x2, t: -0.5 * torch.sum((x1 - x2) ** 2, -1) / t[..., 1] ** 2,
+            1, ("sigma_f", "l_1"))), cfg(2), [(0.5, 1.5), (0.3, 1.0)], lm),
+        "sorted_uniform_gauss": (sorted_gauss, cfg(4), [(-1.0, 1.0)] * 5, lpu),
+        "grid_2d": (lambda: GPModel(
+            2.0 * (K.MaskedKernel(K.SquaredExponentialKernel(), 2, [0])
+                   * K.MaskedKernel(K.RationalQuadraticKernel(), 2, [1]))
+            + K.DiagonalNoiseKernel(2)), grid,
+            [(0.5, 1.5), (0.2, 0.6), (0.5, 1.5), (0.5, 3.0), (0.2, 0.6), (0.02, 0.2)], lm),
+        "matern_general": (nu_model, cfg(2), [(0.8, 1.3), (1.2, 5.8), (0.4, 0.9)], lm),
+    }
+
+
+@pytest.mark.parametrize("name", ["gibbs_gauss", "gibbs_exp", "gibbs_interpolated",
+                                  "chain_rule_se", "sorted_uniform_gauss", "grid_2d",
+                                  "matern_general"])
+def test_zoo_per_chain_route_matches_cpu(dev, name):
+    """Phase 8c at C = 8: the per-chain route on the card, launching
+    neither CUDA kernel and calling neither plain version, with the CPU's
+    value (1e-9 relative / 1e-9 absolute, for a log likelihood near zero)
+    and gradient (1e-7 / 1e-9)."""
+    from gptools_tpu_torch.ops import cov_cuda
+
+    make, data_fn, box, density = _zoo_models()[name]
+    rng = np.random.default_rng(8)
+    x = np.stack([rng.uniform(lo, hi, 8) for lo, hi in box], -1)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        model, data = make(), data_fn(d)
+        assert model._evidence_plan(data) is None
+        evidence_cuda.reset_counts()
+        cov_cuda.reset_counts()
+        t = torch.tensor(x, device=d, requires_grad=True)
+        v = density(model, t, data)
+        (g,) = torch.autograd.grad(v.sum(), t)
+        assert evidence_cuda.ROUTE_CALLS == {"chains_minor": 0, "per_chain": 1}
+        assert sum(evidence_cuda.LAUNCHES.values()) + sum(cov_cuda.LAUNCHES.values()) == 0
+        assert sum(evidence_cuda.PLAIN_CALLS.values()) + sum(cov_cuda.PLAIN_CALLS.values()) == 0
+        out[d.type] = (v.detach().cpu().numpy(), g.cpu().numpy())
+    assert np.isfinite(out["cuda"][0]).all()
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-7, atol=1e-9)
+
+
+def test_per_chain_route_graph_equals_eager(dev, monkeypatch):
+    """On the card the per-chain route's value and gradient replay a CUDA
+    graph captured at the first call of each shape: the same numbers as
+    the eager route (1e-12), a new capture for a new C, and at most
+    `_PER_CHAIN_GRAPHS` graphs kept per model."""
+    from gptools_tpu_torch.models import gp
+
+    make, data_fn, box, density = _zoo_models()["gibbs_gauss"]
+    model, data = make(), data_fn(dev)
+    rng = np.random.default_rng(9)
+
+    def call(C):
+        x = np.stack([rng.uniform(lo, hi, C) for lo, hi in box], -1)
+        t = torch.tensor(x, device=dev, requires_grad=True)
+        v = density(model, t, data)
+        return x, v.detach(), torch.autograd.grad(v.sum(), t)[0]
+
+    results = [call(C) for C in (8, 8, 5, 3, 2, 7)]
+    assert len(model._route_graphs) == gp._PER_CHAIN_GRAPHS
+    monkeypatch.setattr(gp, "_PER_CHAIN_GRAPHS", 0)
+    for x, v, g in results:
+        t = torch.tensor(x, device=dev, requires_grad=True)
+        ve = density(model, t, data)
+        (ge,) = torch.autograd.grad(ve.sum(), t)
+        torch.testing.assert_close(v, ve.detach(), rtol=1e-12, atol=0)
+        torch.testing.assert_close(g, ge, rtol=1e-12, atol=1e-12 * float(ge.abs().max()))

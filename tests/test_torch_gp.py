@@ -123,9 +123,11 @@ def test_free_fixed_plumbing_matches_jax(rng):
 
 
 def test_unported_model_parts_raise():
-    """A noise kernel the port does not have yet (any ported kernel is a
-    valid noise kernel now): converting the model names its queue item."""
-    from gptools_tpu.ops.kernels import RationalQuadraticKernel
+    """A noise kernel that holds a JAX callable cannot be carried across:
+    converting the model raises TypeError and names the port's class,
+    which takes a torch callable."""
+    from gptools_tpu.ops.kernels import ArbitraryKernel
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        convert.model_from_jax(JGPModel(JGibbs(), noise_kernel=RationalQuadraticKernel()))
+    noise = ArbitraryKernel(lambda x1, x2, t: t[0], 1, ("c",))
+    with pytest.raises(TypeError, match="torch callable"):
+        convert.model_from_jax(JGPModel(JGibbs(), noise_kernel=noise))

@@ -262,13 +262,12 @@ def test_duplicate_row_noise_raises():
 
 def test_unclassified_kernel_raises():
     """A kernel without an evidence-kernel kind takes the per-chain route,
-    which needs the kernel's own scalar: a warp the port lacks raises there
-    (ROADMAP Queue 1 item 11), as does the Matern order the reference
-    refuses (nu = 1/2)."""
+    which needs the kernel's own scalar: the abstract `InputWarp` raises
+    there, as does the Matern order the reference refuses (nu = 1/2)."""
     data = DatasetBuilder(1).add(np.linspace(0, 1, 4), np.zeros(4), err_y=0.1).build(
         torch.float64, "cpu")
     k = tkernels.WarpedKernel(tkernels.Matern52Kernel(), tkernels.InputWarp())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="defines no __call__"):
         TGPModel(k).log_marginal_batch(torch.ones(2, 2, dtype=torch.float64), data)
     with pytest.raises(NotImplementedError, match="nu = 1/2"):
         tkernels.MaternKernel(nu=0.5)

@@ -129,3 +129,92 @@ def test_log_prob_constants_follow_dtype(rng):
         np.testing.assert_array_equal(
             draws.numpy(),
             _config4_priors(tpri).sample(torch.Generator().manual_seed(1), (8,), dtype).numpy())
+
+
+# the rest of the reference's priors: name -> builder of the module's prior
+_ZOO_PRIORS = {
+    "gamma": lambda m: m.GammaJointPrior([2.0, 0.5], [1.5, 3.0]),
+    "gamma_alt": lambda m: m.GammaJointPriorAlt([1.0, 2.0], [0.5, 1.0]),
+    "exponential": lambda m: m.ExponentialJointPrior([2.0, 0.3]),
+    "sorted_uniform": lambda m: m.SortedUniformJointPrior(3, 0.0, 2.0),
+    "core_edge": lambda m: m.CoreEdgeJointPrior(2, 0.1, 1.5),
+    "independent": lambda m: m.IndependentJointPrior(
+        [m.Uniform(0.0, 1.0), m.Normal(0.5, 2.0), m.LogNormal(0.1, 0.5), m.Gamma(2.0, 1.0),
+         m.Exponential(3.0)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ZOO_PRIORS))
+def test_zoo_prior_log_prob_matches_jax(rng, name):
+    """log_prob within 1e-12 inside the support and the same -inf outside
+    it (draws straddle every support edge), with a finite gradient; the
+    bounds and the bijector's type as the reference's."""
+    jp, tp = _ZOO_PRIORS[name](jpri), _ZOO_PRIORS[name](tpri)
+    th = rng.uniform(-0.2, 2.1, (256, jp.dim))
+    lp_j = np.asarray(jax.vmap(jp.log_prob)(jnp.asarray(th)))
+    t = torch.tensor(th, requires_grad=True)
+    lp_t = tp.log_prob(t)
+    np.testing.assert_array_equal(np.isinf(lp_t.detach().numpy()), np.isinf(lp_j))
+    fin = np.isfinite(lp_j)
+    assert fin.any() and (~fin).any()
+    np.testing.assert_allclose(lp_t.detach().numpy()[fin], lp_j[fin], **TOL)
+    if lp_t.requires_grad:
+        assert torch.isfinite(torch.autograd.grad(lp_t.sum(), t)[0]).all()
+    assert tp.bounds == jp.bounds
+    assert type(tp.bijector()).__name__ == type(jp.bijector()).__name__
+    draws = tp.sample(torch.Generator().manual_seed(0), (512,), torch.float64)
+    assert draws.shape == (512, jp.dim) and torch.isfinite(tp.log_prob(draws)).all()
+
+
+_ZOO_BIJECTORS = {
+    "exp": lambda m: m.ExpBijector(0.3),
+    "neg_exp": lambda m: m.NegExpBijector(1.5),
+    "upper_bounded": lambda m: m.interval_bijector(None, 2.0),
+    "ordered": lambda m: m.OrderedIntervalBijector(-0.5, 2.0, 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ZOO_BIJECTORS))
+def test_zoo_bijector_matches_jax(rng, name):
+    """forward, inverse and log-det against the reference within 1e-12; a
+    (64, dim) batch at once (the ordered bijector in closed form)."""
+    jb, tb = _ZOO_BIJECTORS[name](jbij), _ZOO_BIJECTORS[name](tbij)
+    assert type(jb).__name__ == type(tb).__name__
+    u = 3.0 * rng.standard_normal((64, jb.dim))
+    x_j = np.asarray(jax.vmap(jb.forward)(jnp.asarray(u)))
+    np.testing.assert_allclose(tb.forward(torch.tensor(u)).numpy(), x_j, **TOL)
+    np.testing.assert_allclose(
+        tb.inverse(torch.tensor(x_j)).numpy(),
+        np.asarray(jax.vmap(jb.inverse)(jnp.asarray(x_j))), **TOL)
+    np.testing.assert_allclose(
+        tb.log_det_jac(torch.tensor(u)).numpy(),
+        np.asarray(jax.vmap(jb.log_det_jac)(jnp.asarray(u))), **TOL)
+
+
+def test_ordered_bijector_log_det_is_the_jacobian(rng):
+    """The closed-form log-det equals log|det| of the forward map's
+    autograd Jacobian, and the forward map is ordered inside (lo, hi)."""
+    b = tbij.OrderedIntervalBijector(0.2, 1.7, 4)
+    u = torch.tensor(rng.standard_normal(4))
+    J = torch.autograd.functional.jacobian(b.forward, u)
+    np.testing.assert_allclose(float(b.log_det_jac(u)), float(torch.slogdet(J)[1]), rtol=1e-12)
+    x = b.forward(torch.tensor(2.0 * rng.standard_normal((32, 4))))
+    assert bool((torch.diff(x, dim=-1) > 0).all()) and 0.2 < float(x.min()) < float(x.max()) < 1.7
+
+
+@pytest.mark.parametrize("a", [0.3, 1.0, 2.5])
+def test_gamma_sampler_ks_and_bits(a):
+    """Marsaglia-Tsang from the generator's own draws: a KS test against
+    scipy's gamma at 4000 draws (p > 1e-3), and the same bits from the
+    same generator seed."""
+    from scipy import stats
+
+    shape = torch.full((4000,), a, dtype=torch.float64)
+    x = tpri.standard_gamma(torch.Generator().manual_seed(11), shape)
+    assert bool((x > 0).all())
+    assert stats.kstest(x.numpy(), stats.gamma(a).cdf).pvalue > 1e-3
+    again = tpri.standard_gamma(torch.Generator().manual_seed(11), shape)
+    assert torch.equal(x, again)
+    scaled = tpri.GammaJointPrior([a], [2.0]).sample(torch.Generator().manual_seed(5), (4000,),
+                                                   torch.float64)
+    assert stats.kstest(scaled[:, 0].numpy(), stats.gamma(a, scale=2.0).cdf).pvalue > 1e-3

@@ -244,9 +244,11 @@ def test_sample_posterior_smc_chees_then_serve():
 def test_unported_routes_raise():
     model = GPModel(tk.SquaredExponentialKernel())
     data = configs.config2_se_deriv_nuts(n_points=6, device="cpu").data
+    # metrics= is ported: a logger without log_window fails at the first window
     for sampler in ("hmc", "pt"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            run_sampler(model, data, torch.Generator(), sampler=sampler, metrics=object())
+        with pytest.raises(AttributeError, match="log_window"):
+            run_sampler(model, data, torch.Generator(), sampler=sampler, num_chains=2,
+                        num_warmup=2, num_samples=2, metrics=object())
     with pytest.raises(ValueError, match="unknown sampler"):
         run_sampler(model, None, torch.Generator(), sampler="emcee")
     with pytest.raises(ValueError, match="evidence_backend"):
