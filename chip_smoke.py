@@ -136,6 +136,24 @@ Phases (any failure raises and exits non-zero; no phase falls back):
    through the `OrderedIntervalBijector`); then the CUDA launches of one
    eager density call of each model (torch.profiler).
 
+9. (run right after phase 8, before phase 3b) the chains sharded over a
+   mesh (`gptools_tpu_torch.parallel`), float64, each sharded run held to
+   the unsharded run from the same seed (every draw within `MESH_TOL`),
+   with the evidence and collective counts set to 0 just before each run
+   and read just after: (9a) config 4 through ``smc_then_chees(mesh=
+   make_mesh())`` at world size 1 on NCCL, 1024 chains, 75 + 150 (the
+   kernel's launches > 0, plain-version and route calls 0, collectives >
+   0; the walls and the host wall per density call); (9c) config 5
+   through the route at world size 1, 1024 chains, SMC + 25 + 25 (route
+   calls > 0, no launch); each of 9a and 9c runs unsharded, sharded,
+   sharded, unsharded, and prints all four walls; (9b) config 4 at 2048
+   chains, 75 + 150, on two ranks sharing the card (gloo,
+   `scripts/torch_mp_worker.py`), each rank's draws against one
+   process's unsharded run at 2048 chains and its kernel launched at
+   C = 1024, its half, never at 2048; and config 5's log marginal and
+   gradient through the route at 1024 thetas, 512 a rank, against one
+   unsharded call at 1024.
+
 The last three lines of standard output are the card line, the kernel
 table as JSON and ``{"ok": true, "device": {...}}``.
 """
@@ -224,6 +242,12 @@ FREE_NU_PROTOCOL = (8, 300, 400)
 FREE_NU_RUN = (8, 300, 300)
 ZOO_C = 256  # 8c's thetas per parity call
 GRID_C = 64  # 8c's thetas for the 2-D grid (N = 156)
+# phase 9: (chains, warmup, samples) of each sharded run, and the largest
+# draw difference allowed from the unsharded run (0 expected: a chain's
+# density and gradient do not depend on how many chains share the call)
+MESH_RUNS = {"9a": (1024, 75, 150), "9b": (2048, 75, 150), "9c": (1024, 25, 25)}
+MESH_TOL = 1e-10
+MESH_WORKER_TIMEOUT = 300
 
 
 def fail(msg):
@@ -1555,6 +1579,168 @@ def zoo_phase(dev, card):
         gp_mod._PER_CHAIN_GRAPHS = keep
 
 
+def mesh_run(tag, config, chains, warmup, samples, dev, mesh):
+    """One config through ``smc_then_chees`` (1024 particles, max_steps
+    256, float64, seed `SEED`) with or without a mesh, the evidence and
+    collective counts set to 0 just before and read just after. Returns
+    (result, wall seconds, launches, plain-version calls, route calls,
+    collectives)."""
+    import torch
+
+    from gptools_tpu_torch import configs
+    from gptools_tpu_torch.infer.pipeline import smc_then_chees
+    from gptools_tpu_torch.ops import evidence_cuda as ec
+    from gptools_tpu_torch.parallel import mesh as pmesh
+
+    prob = configs.ALL_CONFIGS[config](dtype=torch.float64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    ec.reset_counts()
+    pmesh.reset_counts()
+    t0 = time.perf_counter()
+    res = smc_then_chees(prob.model, prob.data, gen, num_chains=chains, num_warmup=warmup,
+                         num_samples=samples, num_particles=1024, max_steps=256, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sum(ec.LAUNCHES.values())
+    plain, routes = sum(ec.PLAIN_CALLS.values()), sum(ec.ROUTE_CALLS.values())
+    coll = dict(pmesh.COLLECTIVE_CALLS)
+    calls = launches or routes
+    print(f"phase9 {tag}: wall {wall:.3f} s; evidence kernel launches {launches}, "
+          f"plain-version calls {plain}, route calls {routes}, collectives {coll}; host wall "
+          f"per density call {1e3 * wall / max(calls, 1):.3f} ms; SMC rounds "
+          f"{res.diagnostics['smc_rounds']}, leapfrogs "
+          f"{int(res.diagnostics['num_leapfrog_total'])}")
+    return res, wall, launches, plain, routes, coll
+
+
+def max_diff(a, b, tag):
+    """max |a - b| of two draws stacks of one shape (raises otherwise)."""
+    if a.shape != b.shape:
+        fail(f"phase9 {tag}: shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    return float((a.to(b.device) - b).abs().max())
+
+
+def mesh_phase(dev, card):
+    """Phase 9: the chains sharded over a mesh (`parallel.mesh`), float64,
+    each sharded run against the unsharded run from the same seed (draws
+    within `MESH_TOL`): (9a) config 4 at world size 1 on NCCL through
+    ``smc_then_chees(mesh=make_mesh())`` (the evidence kernel's launches
+    > 0, no plain call, no route call, collectives > 0; the walls and the
+    host wall per density call); (9c) config 5 through the route at world
+    size 1; 9a and 9c each unsharded, sharded, sharded, unsharded; (9b)
+    config 4 at 2048 chains on two ranks sharing the card (gloo,
+    `scripts/torch_mp_worker.py`), each rank's launches at C = 1024 (its
+    half) and never at 2048, and config 5's route at 9c's chains, half a
+    rank, against one unsharded call. Returns the kernel's launches of the
+    sharded runs (9a's two and both 9b ranks')."""
+    import importlib.util
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from gptools_tpu_torch import configs
+    from gptools_tpu_torch.parallel import make_mesh
+
+    t_start = time.perf_counter()
+    mesh = make_mesh()
+    print(f"phase9 mesh: {mesh} on backend {dist.get_backend()}")
+
+    # 9a and 9c at world size 1 on NCCL, each run four times in the order
+    # unsharded, sharded, sharded, unsharded, so that neither side inherits
+    # the other's warm caches alone; every draw against the first run's
+    total = 0
+    for part, config in (("9a", 4), ("9c", 5)):
+        chains, warm, samp = MESH_RUNS[part]
+        tag = (f"{part} config{config} smc_then_chees ({chains} chains, {warm} + {samp}, "
+               f"f64{', the route' if config == 5 else ''})")
+        runs = [mesh_run(f"{tag} {'mesh=make_mesh()' if m else 'unsharded'} (run {i + 1})",
+                         config, chains, warm, samp, dev, mesh if m else None)
+                for i, m in enumerate((False, True, True, False))]
+        ref = runs[0][0]
+        d = max(max_diff(r[0].thetas, ref.thetas, part) for r in runs[1:])
+        w0, w1 = (runs[0][1], runs[3][1]), (runs[1][1], runs[2][1])
+        print(f"phase9 {part}: sharded walls {w1[0]:.3f}, {w1[1]:.3f} s against unsharded "
+              f"{w0[0]:.3f}, {w0[1]:.3f} s (mean {sum(w1) / sum(w0):.3f}x; runs 1 and 2 "
+              f"{w1[0] / w0[0]:.3f}x, 3 and 4 {w1[1] / w0[1]:.3f}x); largest draw difference "
+              f"{d:.3e} ({card})")
+        for _, _, n, plain, routes, coll in runs[1:3]:
+            ok = (n > 0 and routes == 0) if config == 4 else (routes > 0 and n == 0)
+            if not (d <= MESH_TOL and ok and plain == 0 and coll["density"] > 0):
+                fail(f"phase9 {part}: difference {d}, launches {n}, plain {plain}, routes "
+                     f"{routes}, collectives {coll}")
+            total += n
+    dist.destroy_process_group()
+
+    # 9b: config 4 at 2048 chains on two ranks sharing the card (gloo)
+    chains, warm, samp = MESH_RUNS["9b"]
+    tag = f"9b config4 smc_then_chees ({chains} chains, {warm} + {samp}, f64)"
+    ref, wall0, *_ = mesh_run(tag + " unsharded, one process", 4, chains, warm, samp, dev,
+                              None)
+    # and config 5's route at 9c's chains, half a rank: its value and
+    # gradient unsharded here, from the workers' seed
+    spec = importlib.util.spec_from_file_location(
+        "torch_mp_worker", os.path.join(ROOT, "scripts", "torch_mp_worker.py"))
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    route_c = MESH_RUNS["9c"][0]
+    route_ll, route_grad, _ = worker.route_check(
+        configs.ALL_CONFIGS[5](dtype=torch.float64, device=dev),
+        torch.Generator(device=dev).manual_seed(SEED + 3), route_c)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        env.pop(k, None)
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "scripts", "torch_mp_worker.py"), "--rank",
+             str(r), "--world", "2", "--port", str(port), "--device", dev.type,
+             "--config", "4", "--chains", str(chains), "--particles", "1024",
+             "--warmup", str(warm), "--samples", str(samp), "--seed", str(SEED), "--out", out,
+             "--route-chains", str(MESH_RUNS["9c"][0])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+            for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=MESH_WORKER_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            fail("phase9 9b: the two ranks timed out")
+        wall = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0 or "MESH_WORKER " not in log:
+                fail(f"phase9 9b: rank {r} exited {p.returncode}:\n{log[-4000:]}")
+            rep = json.loads(log.split("MESH_WORKER ", 1)[1].splitlines()[0])
+            got = torch.load(os.path.join(out, f"rank{r}.pt"))
+            d = max_diff(got["thetas"], ref.thetas, "9b")
+            d5 = max(max_diff(got["route_ll"], route_ll, "9b route"),
+                     max_diff(got["route_grad"], route_grad, "9b route"))
+            print(f"phase9 9b rank {r}: pipeline {rep['pipeline_s']:.3f} s; evidence kernel "
+                  f"launches {rep['launches']} at C {rep['kernel_chains']}, plain-version "
+                  f"calls {rep['plain']}, route calls {rep['route']}, collectives "
+                  f"{rep['collectives']}; largest draw difference {d:.3e}; config 5's route "
+                  f"at {route_c // 2} thetas a rank ({rep['route_check_calls']} call) against "
+                  f"{route_c} in one call: largest ll and gradient difference {d5:.3e} ({card})")
+            if not (d <= MESH_TOL and rep["launches"] > 0 and rep["plain"] == 0
+                    and rep["route"] == 0 and max(rep["kernel_chains"]) == chains // 2
+                    and chains // 2 in rep["kernel_chains"] and d5 <= MESH_TOL
+                    and rep["route_check_calls"] == 1):
+                fail(f"phase9 9b rank {r}: {rep}, difference {d}, route difference {d5}")
+            total += rep["launches"]
+    print(f"phase9 9b: two ranks {wall:.3f} s from start to exit (processes, imports and "
+          f"the library's load included); unsharded in this process {wall0:.3f} s")
+    print(f"phase9 walls: {time.perf_counter() - t_start:.1f} s")
+    return total
+
+
 KIND_IDS = {"0": "gibbs_tanh", "1": "se", "2": "matern52"}
 
 
@@ -1751,6 +1937,11 @@ def main():
 
     done("8")
 
+    # ---- phase 9: chains sharded over a mesh -----------------------------
+    mesh_launches = mesh_phase(dev, card)
+
+    done("9")
+
     # ---- phase 3b: covariance-kernel parity and times --------------------
     cov_table = {}
     for config in (4, 2):
@@ -1835,6 +2026,8 @@ def main():
     for run, (k, n) in inference.items():
         table[k]["launches"] += n
         table[k]["launches_by_path"][run] = n
+    table["gibbs_tanh"]["launches"] += mesh_launches
+    table["gibbs_tanh"]["launches_by_path"]["9"] = mesh_launches
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -1842,7 +2035,7 @@ def main():
         "route": "cuda",
         "source": SOURCE,
         "replaces": REPLACES,
-        "launches": row["launches"],  # phase 4's float32 path and phase 7's runs
+        "launches": row["launches"],  # phase 4's float32 path, phase 7's and 9's runs
         "launches_by_path": row["launches_by_path"],
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],  # per call through the wrapper, as in every earlier run

@@ -11,7 +11,8 @@ reference's XLA route written in torch elsewhere (config 5's transformed
 observation, N past the kernel's 48, other kernels); `models.gp.
 GaussianProcess` / `models.serve` answer predictions from the posterior,
 their states built by a CUDA covariance kernel (`ops.cov_cuda`) with
-``cov_backend="pallas"``; sources under `csrc/`.
+``cov_backend="pallas"``; sources under `csrc/`. `parallel` shards the
+chains over cards (one process per card, `torch.distributed`).
 The package exports the reference's public names (models, kernels,
 priors, means, diagnostics, configs, the frozen predictors). Importing it
 loads torch and numpy only: no jax, no triton, and no kernel build (that
@@ -60,6 +61,7 @@ from gptools_tpu_torch.utils import diagnostics
 from gptools_tpu_torch.utils.diagnostics import ess, split_rhat, summarize_samples
 from gptools_tpu_torch import configs
 from gptools_tpu_torch.models.serve import FrozenMCMCPredictor, FrozenPredictor
+from gptools_tpu_torch import parallel
 
 __version__ = "0.1.0"
 
@@ -104,4 +106,5 @@ __all__ = [
     "configs",
     "FrozenPredictor",
     "FrozenMCMCPredictor",
+    "parallel",
 ]

@@ -9,7 +9,8 @@ config 3 a BetaWarp-ed Matern-5/2 GP with a linear mean (N = 35), config 4
 the Gibbs-tanh pedestal fit (N = 27), config 5 the same model family with
 a line-integral observation (M = 32 observations of Q = 47 latent points,
 through the observation matrix T). The reference runs config 5's 1024
-chains sharded over a mesh; here they run on one card, with no mesh.
+chains sharded over a mesh; here they run on one card, or sharded over
+cards through ``mesh=`` (`parallel`).
 """
 
 from __future__ import annotations

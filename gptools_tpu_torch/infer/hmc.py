@@ -12,10 +12,10 @@ per-chain transition over a scalar density. Randomness comes from the
 caller's `torch.Generator`, drawn as (C, ...) tensors on the positions'
 device. The reference's ``logp_params`` operand, ``transition_builder``,
 the chunked window runner and the compiled-program caches
-(``_window_program``, ``make_window_runner``, ``run_window``) exist for
-XLA's compilation and have no counterpart: PyTorch runs the windows
-eagerly, and a transition is named by ``transition="hmc"`` or
-``"nuts"``.
+(``_window_program``, ``make_window_runner``) exist for XLA's
+compilation and have no counterpart: PyTorch runs the windows eagerly,
+and a transition is named by ``transition="hmc"`` or ``"nuts"``.
+`run_window` is the reference's public single-window entry point.
 """
 
 from __future__ import annotations
@@ -37,7 +37,9 @@ __all__ = [
     "leapfrog",
     "kinetic",
     "value_and_grad",
+    "ValueWithGrad",
     "warmup_schedule",
+    "run_window",
     "sample",
 ]
 
@@ -157,10 +159,36 @@ def kinetic(p, inv_mass):
     return 0.5 * (p * p * inv_mass).sum(-1)
 
 
+class ValueWithGrad(torch.autograd.Function):
+    """``vag(thetas) -> (values, gradients)`` as a function of thetas: the
+    forward keeps the gradient, the backward returns ``g * grad`` (first
+    order only, as the evidence kernel). The batch densities whose
+    gradient is computed apart from autograd (the route's CUDA graph, a
+    `parallel.mesh.ShardedDensity`) return their values through it."""
+
+    @staticmethod
+    def forward(ctx, vag, thetas):
+        ll, grad = vag(thetas)
+        ctx.save_for_backward(grad)
+        return ll
+
+    @staticmethod
+    def backward(ctx, g):
+        (grad,) = ctx.saved_tensors
+        return None, g[:, None] * grad
+
+
 def value_and_grad(logp: Callable) -> Callable:
     """Batched value and gradient of ``logp`` (C, P) -> (C,): one backward
     of the summed densities (each row's gradient is its own, since the
-    density is rowwise); no graph outlives the call."""
+    density is rowwise); no graph outlives the call. A density sharded over
+    a mesh (`parallel.mesh.ShardedDensity`) brings its own: each rank's
+    block differentiated there and the blocks gathered, so nothing is
+    differentiated through a collective."""
+    from gptools_tpu_torch.parallel.mesh import ShardedDensity
+
+    if isinstance(logp, ShardedDensity):
+        return logp.value_and_grad
 
     def logp_and_grad(qs):
         with torch.enable_grad():
@@ -205,7 +233,10 @@ def _hmc_transition(logp_and_grad: Callable, q, logp0, g0, generator, eps, inv_m
     momentum, a jittered step ``eps (1 + jitter (2U - 1))`` and a
     Metropolis test (NaN -> reject); ``eps`` is 0-d or per chain (C,), and
     ``inv_mass`` (P,) or per chain (C, P). The chain's density and gradient
-    at ``q`` are carried in (the reference evaluates them again)."""
+    at ``q`` are carried in (the reference evaluates them again), or are
+    evaluated here when ``logp0`` is None."""
+    if logp0 is None:
+        logp0, g0 = logp_and_grad(q)
     C, P = q.shape
     dtype, dev = q.dtype, q.device
     p0 = torch.randn((C, P), generator=generator, dtype=dtype, device=dev) / torch.sqrt(inv_mass)
@@ -271,6 +302,35 @@ def _run_window(transition: Callable, state, generator, length: int, da, inv_mas
     if keep:
         stacked = {k: torch.stack(v, 0 if k == "eps" else 1) for k, v in outs.items()}
     return state, da, welford, divergences, syncs, stacked
+
+
+def run_window(
+    transition: Callable,
+    qs: torch.Tensor,
+    generator: torch.Generator,
+    length: int,
+    da: DualAveragingState,
+    inv_mass: torch.Tensor,
+    adapt_eps: bool = True,
+    collect_welford: bool = False,
+    welford: Optional[WelfordState] = None,
+    target_accept: float = 0.8,
+):
+    """``length`` transitions of all chains from positions ``qs`` (C, P)
+    with pooled step-size adaptation (``adapt_eps``) and, with
+    ``collect_welford``, pooled Welford moments of the new positions
+    (from ``welford``, else empty). ``transition(q, logp, grad, generator,
+    eps, inv_mass) -> (q, logp, grad, stats)`` evaluates the density at
+    ``q`` when ``logp`` is None (`nuts.nuts_transition_builder`, or
+    `_hmc_transition` bound to a density). Returns (qs, da, welford, outs),
+    ``outs`` the per-iteration ``u``, ``log_prob`` and transition stats
+    stacked on axis 1 and the step sizes ``eps`` on axis 0."""
+    if welford is None:
+        welford = welford_init(qs.shape[1], qs.dtype, qs.device)
+    state, da, moments, _, _, outs = _run_window(
+        transition, (qs, None, None), generator, length, da, inv_mass, adapt_eps,
+        welford if collect_welford else None, target_accept, keep=True)
+    return state[0], da, moments if collect_welford else welford, outs
 
 
 @torch.no_grad()

@@ -22,9 +22,10 @@ density call over all chains, and a chain that has finished (turned,
 diverged, or reached the depth) is frozen: its step is zero, so its row
 is evaluated at its own edge, and every carry takes its old value through
 `torch.where`. Deciding whether any chain is still active is a host sync:
-one per leaf and one per doubling, counted in ``stats["host_syncs"]``.
-The reference's ``nuts_transition_builder`` and hashable transition spec
-serve XLA's compiled-program cache and have no counterpart.
+one per leaf and one per doubling, counted in ``stats["host_syncs"]``;
+the decision is taken on values every rank of a mesh holds alike, so
+sharded ranks take the same branches. The reference's hashable transition
+spec serves XLA's compiled-program cache and has no counterpart.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import torch
 
 from gptools_tpu_torch.infer import hmc as _hmc
 
-__all__ = ["sample"]
+__all__ = ["nuts_transition_builder", "sample"]
 
 
 def _uturn(dz, p_a, p_b, inv_mass):
@@ -140,8 +141,10 @@ def _build_subtree(logp_and_grad: Callable, edge, v, n_leaf: int, h0, eps, inv_m
 def _nuts_transition(logp_and_grad: Callable, q, logp0, g0, generator, eps, inv_mass,
                      max_depth: int = 10, divergence_threshold: float = 1000.0):
     """One NUTS update of all chains (C, P), their density and gradient at
-    ``q`` carried in (the reference evaluates them again). Returns (q,
-    logp, grad, stats)."""
+    ``q`` carried in (the reference evaluates them again) or, when
+    ``logp0`` is None, evaluated here. Returns (q, logp, grad, stats)."""
+    if logp0 is None:
+        logp0, g0 = logp_and_grad(q)
     C, P = q.shape
     dtype, dev = q.dtype, q.device
     p0 = torch.randn((C, P), generator=generator, dtype=dtype, device=dev) / torch.sqrt(inv_mass)
@@ -201,6 +204,22 @@ def _nuts_transition(logp_and_grad: Callable, q, logp0, g0, generator, eps, inv_
         "host_syncs": syncs,
     }
     return tr["prop_z"], tr["prop_logp"], tr["prop_g"], stats
+
+
+def nuts_transition_builder(max_depth: int = 10, divergence_threshold: float = 1000.0):
+    """``builder(logp_and_grad) -> transition``: the NUTS transition of all
+    chains on a batched value and gradient (`hmc.value_and_grad`), with
+    the signature `hmc.run_window` drives, ``transition(q, logp, grad,
+    generator, eps, inv_mass) -> (q, logp, grad, stats)``."""
+
+    def builder(logp_and_grad: Callable):
+        def transition(q, logp, grad, generator, eps, inv_mass):
+            return _nuts_transition(logp_and_grad, q, logp, grad, generator, eps, inv_mass,
+                                    max_depth, divergence_threshold)
+
+        return transition
+
+    return builder
 
 
 def sample(

@@ -8,8 +8,11 @@ affine map has a constant Jacobian, so the density needs no correction);
 with ``whiten=False`` they run in u with the ensemble variance as a frozen
 diagonal inverse mass. The reference's per-(model, data) closure cache and
 warm-compile threads exist only for XLA's compile cache and have no
-counterpart here. ``mesh`` / ``mesh_axis`` (chains sharded over devices)
-are ROADMAP Queue 1 item 14 and raise.
+counterpart here. With ``mesh`` (a `DeviceMesh`) the SMC particles' and
+the chains' densities are sharded over ``mesh_axis`` (default: the mesh's
+first dimension; `parallel.mesh.ShardedDensity`, the whitening's affine
+map computed on each rank's block) and every rank returns the same global
+result.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from gptools_tpu_torch.infer import model_logp
 from gptools_tpu_torch.infer import nuts as _nuts
 from gptools_tpu_torch.infer import smc as _smc
 from gptools_tpu_torch.infer.hmc import SampleResult
+from gptools_tpu_torch.parallel.mesh import ShardedDensity, chain_sharding
 
 __all__ = ["smc_then_nuts", "smc_then_chees"]
 
@@ -37,16 +41,26 @@ def _unwhiten_samples(C: torch.Tensor, mu: torch.Tensor, vs: torch.Tensor) -> to
     return mu + torch.einsum("ij,csj->csi", C, vs)
 
 
-def _no_mesh(mesh, mesh_axis):
-    if mesh is not None or mesh_axis is not None:
-        raise NotImplementedError("mesh / mesh_axis: ROADMAP Queue 1 item 14")
+def _sharded(logp, mesh, mesh_axis):
+    """``logp`` with its chains sharded over the mesh, or as is without
+    one."""
+    return logp if mesh is None else ShardedDensity(logp, mesh, mesh_axis)
 
 
-def _warm_start(model, data, generator, num_chains, num_particles, smc_kwargs):
+def _check_chains(mesh, mesh_axis, num_chains):
+    """ValueError unless the mesh dimension divides the chains (as the
+    reference's ``_chain_sharding``), before any work."""
+    if mesh is not None:
+        chain_sharding(mesh, mesh_axis).block(num_chains)
+
+
+def _warm_start(model, data, generator, num_chains, num_particles, smc_kwargs, mesh,
+                mesh_axis):
     """SMC to beta = 1, then ``num_chains`` starts resampled from its
     particles. Returns (SMC result, particles (N, P), starts (C, P))."""
     smc_res = _smc.sample(
-        model, data, generator, num_particles=num_particles, **(smc_kwargs or {})
+        model, data, generator, num_particles=num_particles, mesh=mesh, mesh_axis=mesh_axis,
+        **(smc_kwargs or {})
     )
     particles = smc_res.u[0]
     idx = torch.randint(
@@ -99,19 +113,21 @@ def smc_then_nuts(
     ``whiten=True`` runs NUTS in the SMC-whitened coordinates (step size
     adapted from 0.3, no mass adaptation); ``whiten=False`` in u with the
     SMC variance as a frozen diagonal inverse mass."""
-    _no_mesh(mesh, mesh_axis)
+    _check_chains(mesh, mesh_axis, num_chains)
     smc_res, particles, u0 = _warm_start(
-        model, data, generator, num_chains, num_particles, smc_kwargs
+        model, data, generator, num_chains, num_particles, smc_kwargs, mesh, mesh_axis
     )
     kw = dict(num_warmup=num_warmup, num_samples=num_samples, max_depth=max_depth,
               target_accept=target_accept, adapt_mass=False)
     if whiten:
         mu, C, logp_w = _whitening(model, data, particles)
-        res = _nuts.sample(logp_w, _whiten_init(C, mu, u0), generator, eps0=0.3, **kw)
+        res = _nuts.sample(_sharded(logp_w, mesh, mesh_axis), _whiten_init(C, mu, u0),
+                           generator, eps0=0.3, **kw)
         res = res._replace(u=_unwhiten_samples(C, mu, res.u))
     else:
         var = particles.var(0, unbiased=False) + 1e-10
-        res = _nuts.sample(model_logp(model, data), u0, generator, inv_mass0=var, **kw)
+        res = _nuts.sample(_sharded(model_logp(model, data), mesh, mesh_axis), u0, generator,
+                           inv_mass0=var, **kw)
     return _finish(model, res, smc_res)
 
 
@@ -140,24 +156,25 @@ def smc_then_chees(
     ``cost_normalize`` / ``cost_elasticity``: the trajectory-time rule and
     its calibrated equilibrium, as in the reference; both, and ``eps0`` and
     ``inv_mass0``, may be overridden via ``chees_kwargs``."""
-    _no_mesh(mesh, mesh_axis)
+    _check_chains(mesh, mesh_axis, num_chains)
     ck = {"cost_normalize": cost_normalize, "cost_elasticity": cost_elasticity}
     ck.update(chees_kwargs or {})
     target_accept = ck.pop("target_accept", target_accept)
     max_steps = ck.pop("max_steps", max_steps)
 
     smc_res, particles, u0 = _warm_start(
-        model, data, generator, num_chains, num_particles, smc_kwargs
+        model, data, generator, num_chains, num_particles, smc_kwargs, mesh, mesh_axis
     )
     kw = dict(num_warmup=num_warmup, num_samples=num_samples, target_accept=target_accept,
               max_steps=max_steps)
     if whiten:
         mu, C, logp_w = _whitening(model, data, particles)
-        res = _chees.sample(logp_w, _whiten_init(C, mu, u0), generator,
-                            eps0=ck.pop("eps0", 0.3), **kw, **ck)
+        res = _chees.sample(_sharded(logp_w, mesh, mesh_axis), _whiten_init(C, mu, u0),
+                            generator, eps0=ck.pop("eps0", 0.3), **kw, **ck)
         res = res._replace(u=_unwhiten_samples(C, mu, res.u))
     else:
         var = particles.var(0, unbiased=False) + 1e-10
-        res = _chees.sample(model_logp(model, data), u0, generator, eps0=ck.pop("eps0", 0.1),
-                            inv_mass0=ck.pop("inv_mass0", var), **kw, **ck)
+        res = _chees.sample(_sharded(model_logp(model, data), mesh, mesh_axis), u0, generator,
+                            eps0=ck.pop("eps0", 0.1), inv_mass0=ck.pop("inv_mass0", var),
+                            **kw, **ck)
     return _finish(model, res, smc_res)

@@ -24,24 +24,31 @@ import torch
 
 from gptools_tpu_torch.infer import _attach_thetas, _initial_positions, _per_data, hmc
 from gptools_tpu_torch.infer.hmc import SampleResult
+from gptools_tpu_torch.parallel.mesh import ShardedDensity
 
 __all__ = [
     "model_splits",
     "model_splits_batched",
     "log_prior_u_batched",
+    "tempered_logp",
     "tempered_logp_and_grad",
     "geometric_ladder",
     "sample",
 ]
 
 
-def model_splits_batched(model, data):
-    """Batched u-space log-likelihood ``us (N, Pf) -> (N,)``."""
+def model_splits_batched(model, data, mesh=None, mesh_axis=None):
+    """Batched u-space log-likelihood ``us (N, Pf) -> (N,)``; with a
+    ``mesh``, each call computes the rank's block of rows over
+    ``mesh_axis`` (default: the mesh's first dimension) and gathers the
+    values (`parallel.mesh.ShardedDensity`)."""
 
     def log_like_batched(us):
         return model.log_marginal_batch(model.theta_of_u(us), data)
 
-    return log_like_batched
+    if mesh is None:
+        return log_like_batched
+    return ShardedDensity(log_like_batched, mesh, mesh_axis)
 
 
 def log_prior_u_batched(model):
@@ -63,17 +70,24 @@ def model_splits(model, data):
                      lambda: (model_splits_batched(model, data), log_prior_u_batched(model)))
 
 
-def tempered_logp_and_grad(log_like_fn: Callable, log_prior_fn: Callable, beta):
-    """Batched value and gradient of ``beta * log_like(u) + log_prior_u(u)``
-    (``beta`` 0-d or one per row), with the reference's guard: where the
-    prior is out of support the likelihood is taken as 0."""
+def tempered_logp(log_like_fn: Callable, log_prior_fn: Callable) -> Callable:
+    """The batched tempered density ``(q, beta) -> beta * log_like(q) +
+    log_prior_u(q)`` (``beta`` 0-d or one per row), with the reference's
+    guard: where the prior is out of support the likelihood is taken as
+    0."""
 
-    def f(q):
+    def f(q, beta):
         lp = log_prior_fn(q)
         ll = torch.where(torch.isfinite(lp), log_like_fn(q), 0.0)
         return beta * ll + lp
 
-    return hmc.value_and_grad(f)
+    return f
+
+
+def tempered_logp_and_grad(log_like_fn: Callable, log_prior_fn: Callable, beta):
+    """Batched value and gradient of `tempered_logp` at ``beta``."""
+    f = tempered_logp(log_like_fn, log_prior_fn)
+    return hmc.value_and_grad(lambda q: f(q, beta))
 
 
 def geometric_ladder(num_temps: int, beta_min: float = 0.1, dtype=torch.float64,
@@ -112,14 +126,14 @@ def _swap_step(arrays: Sequence[torch.Tensor], ll, betas, unif, parity: int):
     return [permute(x) for x in arrays], permute(ll), swap_frac
 
 
-def _sweep(log_like_fn, log_prior_fn, u, betas, eps, inv_mass, generator, parity: int,
+def _sweep(lg, log_prior_fn, u, betas, eps, inv_mass, generator, parity: int,
            num_steps: int, jitter: float):
-    """One HMC sweep of every lane, then one swap sweep. ``u`` (T, C, P),
-    ``eps`` (T,), ``inv_mass`` (T, P). Returns (u, ll, lp, stats, swap
-    fraction), the tables (T, C)."""
+    """One HMC sweep of every lane, then one swap sweep. ``lg`` is the
+    tempered value and gradient of the T * C lanes (`tempered_logp_and_grad`
+    at the lanes' betas), ``u`` (T, C, P), ``eps`` (T,), ``inv_mass``
+    (T, P). Returns (u, ll, lp, stats, swap fraction), the tables (T, C)."""
     T, C, P = u.shape
     lane_beta = betas.repeat_interleave(C)
-    lg = tempered_logp_and_grad(log_like_fn, log_prior_fn, lane_beta)
     q = u.reshape(T * C, P)
     q_new, logp_beta, _, stats = hmc._hmc_transition(
         lg, q, *lg(q), generator, eps.repeat_interleave(C),
@@ -146,6 +160,7 @@ def sample_tempered(log_like_fn: Callable, log_prior_fn: Callable, u0: torch.Ten
     per window (``pt-<phase>``, ``pt-sampling``)."""
     T, C, P = u0.shape
     dtype, dev = u0.dtype, u0.device
+    lg = tempered_logp_and_grad(log_like_fn, log_prior_fn, betas.repeat_interleave(C))
     da = hmc.da_init(torch.full((T,), eps0, dtype=dtype, device=dev))
     inv_mass = torch.ones((T, P), dtype=dtype, device=dev)
     u, step = u0, 0
@@ -159,7 +174,7 @@ def sample_tempered(log_like_fn: Callable, log_prior_fn: Callable, u0: torch.Ten
         div = torch.zeros((T,), dtype=torch.int64, device=dev)
         for _ in range(length):
             eps = torch.exp(da.log_eps if adapt else da.log_eps_avg)
-            u, ll, lp, stats, frac = _sweep(log_like_fn, log_prior_fn, u, betas, eps,
+            u, ll, lp, stats, frac = _sweep(lg, log_prior_fn, u, betas, eps,
                                             inv_mass, generator, step % 2, num_steps, jitter)
             step += 1
             if adapt:

@@ -7,17 +7,21 @@ systematic resampling; random-walk Metropolis mutations preconditioned by
 the particle covariance, each one batched likelihood sweep over all
 particles (`pt.model_splits_batched`: the CUDA evidence kernel on a card).
 The host drives the beta loop, as in the reference. Randomness comes from
-one explicit `torch.Generator`.
+one explicit `torch.Generator`. With a mesh only the likelihood sweeps are
+sharded (`parallel.mesh`): every rank holds the whole ensemble, so the
+weights, the ESS bisection, the resampling and the beta loop's decisions
+are every rank's alike.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from gptools_tpu_torch.infer.hmc import SampleResult
+from gptools_tpu_torch.parallel.mesh import check_generators
 
 __all__ = ["sample", "smc_round", "SMCState"]
 
@@ -123,15 +127,23 @@ def sample(
     num_mutations: int = 5,
     max_rounds: int = 100,
     verbose: bool = False,
+    mesh=None,
+    mesh_axis: Optional[str] = None,
 ) -> SampleResult:
     """Full adaptive-tempering SMC run on ``data``'s device and dtype.
     Returns equally-weighted posterior particles as a `SampleResult` (chains
-    axis = 1) plus ``log_evidence`` in the diagnostics."""
+    axis = 1) plus ``log_evidence`` in the diagnostics. ``mesh``: a
+    `DeviceMesh` whose ``mesh_axis`` (default: its first dimension) shards
+    the particles' likelihood sweeps; the particles are drawn at the global
+    count on every rank, and every rank returns the same result."""
     from gptools_tpu_torch.infer.pt import log_prior_u_batched, model_splits_batched
 
-    log_like_b = model_splits_batched(model, data)
+    log_like_b = model_splits_batched(model, data, mesh, mesh_axis)
     log_prior_b = log_prior_u_batched(model)
     dtype, dev = data.dtype, data.device
+    if mesh is not None:
+        log_like_b.sharding.block(num_particles, "num_particles")
+        check_generators(generator, log_like_b.sharding)
 
     thetas0 = model.hyperprior.sample(generator, (num_particles,), dtype).to(dev)
     u0 = model.u_of_theta(thetas0)

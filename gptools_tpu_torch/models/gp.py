@@ -71,6 +71,8 @@ from gptools_tpu_torch.models.dataset import (
 from gptools_tpu_torch.models.mean import MeanFunction, mean_vector
 from gptools_tpu_torch.ops import assemble, cov_cuda, evidence, evidence_cuda, fused
 from gptools_tpu_torch.ops.kernels import DiagonalNoiseKernel, Kernel
+from gptools_tpu_torch.infer.hmc import ValueWithGrad
+from gptools_tpu_torch.parallel.mesh import ShardedDensity
 from gptools_tpu_torch.utils.bounds import CombinedBounds, MaskedBounds
 
 __all__ = ["GPModel", "GaussianProcess", "Prediction"]
@@ -136,23 +138,6 @@ def _chunked_vag(fn, chunk: int, thetas: torch.Tensor):
         lls.append(ll.detach())
         grads.append(g)
     return torch.cat(lls), torch.cat(grads)
-
-
-class _Vag(torch.autograd.Function):
-    """``vag(thetas) -> (values, gradients)`` as a function of thetas: the
-    forward keeps the gradient, the backward returns ``g * grad`` (first
-    order only, as the evidence kernel)."""
-
-    @staticmethod
-    def forward(ctx, vag, thetas):
-        ll, grad = vag(thetas)
-        ctx.save_for_backward(grad)
-        return ll
-
-    @staticmethod
-    def backward(ctx, g):
-        (grad,) = ctx.saved_tensors
-        return None, g[:, None] * grad
 
 
 class _GraphedVag:
@@ -440,10 +425,17 @@ class GPModel:
             thetaT = thetaT[: plan.n_base]
         return thetaT, plan.ev, aux
 
-    def log_marginal_batch(self, thetas: torch.Tensor, data: Dataset) -> torch.Tensor:
+    def log_marginal_batch(self, thetas: torch.Tensor, data: Dataset, mesh=None,
+                           mesh_axis: Optional[str] = None) -> torch.Tensor:
         """Batched log marginal likelihood: thetas (C, P) -> (C,), by the
         evidence kernel where it applies, else by the route (module
-        docstring)."""
+        docstring). ``mesh``: a `DeviceMesh` whose ``mesh_axis`` (default:
+        its first dimension) shards the chains: each rank computes its block
+        (one kernel launch, or one route call, on C / W chains) and every
+        rank returns the gathered (C,) (`parallel.mesh.ShardedDensity`)."""
+        if mesh is not None:
+            return ShardedDensity(lambda t: self.log_marginal_batch(t, data), mesh,
+                                  mesh_axis)(thetas)
         if thetas.device != data.device:
             raise ValueError(f"thetas on {thetas.device}, data on {data.device}")
         self._check_matern_nu_support(data)
@@ -511,9 +503,9 @@ class GPModel:
 
         if torch.is_grad_enabled() and thetas.requires_grad:
             if thetas.is_cuda and _PER_CHAIN_GRAPHS:
-                return _Vag.apply(self._graphed_vag(fn, chunk, thetas, data), thetas)
+                return ValueWithGrad.apply(self._graphed_vag(fn, chunk, thetas, data), thetas)
             if thetas.shape[0] > chunk:
-                return _Vag.apply(lambda t: _chunked_vag(fn, chunk, t), thetas)
+                return ValueWithGrad.apply(lambda t: _chunked_vag(fn, chunk, t), thetas)
         if thetas.shape[0] <= chunk:
             return fn(thetas)
         return torch.cat([fn(t) for t in thetas.split(chunk)])
@@ -533,16 +525,26 @@ class GPModel:
             graphs[key] = entry
         return entry[1]
 
-    def log_posterior_batch(self, thetas: torch.Tensor, data: Dataset) -> torch.Tensor:
+    def log_posterior_batch(self, thetas: torch.Tensor, data: Dataset, mesh=None,
+                            mesh_axis: Optional[str] = None) -> torch.Tensor:
+        """Batched log posterior: thetas (C, P) -> (C,); ``mesh`` as in
+        `log_marginal_batch`."""
+        if mesh is not None:
+            return ShardedDensity(lambda t: self.log_posterior_batch(t, data), mesh,
+                                  mesh_axis)(thetas)
         lp = self.log_prior(thetas)
         ll = torch.where(
             torch.isfinite(lp), self.log_marginal_batch(thetas, data), 0.0
         )
         return lp + ll
 
-    def log_posterior_u_batch(self, us: torch.Tensor, data: Dataset) -> torch.Tensor:
+    def log_posterior_u_batch(self, us: torch.Tensor, data: Dataset, mesh=None,
+                              mesh_axis: Optional[str] = None) -> torch.Tensor:
         """Unconstrained-space log posterior: us (C, Pf) -> (C,),
-        ll + log prior + log|det J|."""
+        ll + log prior + log|det J|; ``mesh`` as in `log_marginal_batch`."""
+        if mesh is not None:
+            return ShardedDensity(lambda u: self.log_posterior_u_batch(u, data), mesh,
+                                  mesh_axis)(us)
         u_full = self._u_full(us)
         thetas = self.bijector.forward(u_full)
         ldj = self.bijector.log_det_jac(u_full)

@@ -3,19 +3,19 @@
 Counterpart of `gptools_tpu.ops.fused`, in two halves:
 
 - chains-minor, thetaT (P, C) -> (N, N, C): the Gibbs-tanh, SE and
-  Matern-5/2 {value, slope} blocks over the upper-triangle pairs, the
-  BetaWarp / LinearWarp input-warped builds and `flagship_cov_soa`. They
-  are the covariance half of the evidence kernel's plain version and of
-  the batch evidence's chains-minor route (`models.gp`).
+  Matern-5/2 {value, slope} blocks over the upper-triangle pairs (the
+  ``*_soa_sym`` builders), the BetaWarp / LinearWarp input-warped builds
+  and `flagship_cov_soa`. They are the covariance half of the evidence
+  kernel's plain version and of the batch evidence's chains-minor route
+  (`models.gp`). The reference's full-matrix ``*_soa`` builders, every
+  entry computed, are here too; no path of the package calls them.
 - single theta, theta (P,) -> (N, N), or a leading batch (B, P) ->
   (B, N, N): `se_cov_fused`, `gibbs_tanh_cov_fused`, `matern52_cov_fused`,
   `warped_cov_fused` and `flagship_cov` with its ``backend`` switch. They
   serve `GPModel`'s single-theta surface, and the first two are the plain
   version of the covariance kernel (`ops.cov_cuda`).
 
-Both are differentiable by autograd. The reference's full-matrix
-chains-minor ``*_soa`` builders exist for its A/B switch
-(``SOA_SYMMETRIC``) and are not ported.
+Both are differentiable by autograd.
 """
 
 from __future__ import annotations
@@ -39,6 +39,9 @@ __all__ = [
     "gibbs_tanh_cov_fused",
     "matern52_cov_fused",
     "warped_cov_fused",
+    "se_cov_fused_soa",
+    "gibbs_tanh_cov_fused_soa",
+    "matern52_cov_fused_soa",
     "se_cov_fused_soa_sym",
     "gibbs_tanh_cov_fused_soa_sym",
     "matern52_cov_fused_soa_sym",
@@ -55,27 +58,45 @@ __all__ = [
 _SQRT5 = math.sqrt(5.0)
 
 
+def _se_chain(theta):
+    """The SE's per-chain factors (sigma_f^2, 1 / l^2) of theta rows
+    [sigma_f, l]."""
+    sf, ell = theta[0], theta[1]
+    return sf * sf, 1.0 / (ell * ell)
+
+
+def _se_pairs(d, sf2, inv_l2):
+    r2 = d * d * inv_l2
+    e = sf2 * torch.exp(-0.5 * r2)
+    k10 = -d * inv_l2 * e
+    return e, k10, -k10, (1.0 - r2) * inv_l2 * e
+
+
 def se_blocks_d(d, theta):
     """SE {value, slope} blocks (k00, k10, k01, k11) from a separation
     ``d = x_row - x_col`` (static or warped); theta rows [sigma_f, l]."""
+    return _se_pairs(d, *_se_chain(theta))
+
+
+def _matern52_chain(theta):
+    """The Matern-5/2's per-chain factors (sigma_f^2, l, l^2, 5 / (3 l^2))."""
     sf, ell = theta[0], theta[1]
-    inv_l2 = 1.0 / (ell * ell)
-    r2 = d * d * inv_l2
-    e = sf * sf * torch.exp(-0.5 * r2)
-    k10 = -d * inv_l2 * e
-    return e, k10, -k10, (1.0 - r2) * inv_l2 * e
+    return sf * sf, ell, ell * ell, 5.0 / (3.0 * ell * ell)
+
+
+def _matern52_pairs(d, sf2, ell, l2, c11):
+    s = _SQRT5 * torch.abs(d) / ell
+    e = sf2 * torch.exp(-s)
+    k00 = (1.0 + s + s * s / 3.0) * e
+    g = (5.0 / 3.0) * (d / l2) * (1.0 + s) * e
+    k11 = c11 * (1.0 + s - s * s) * e
+    return k00, -g, g, k11
 
 
 def matern52_blocks_d(d, theta):
     """Matern-5/2 blocks: k = sf^2 (1 + s + s^2/3) e^{-s}, s = sqrt(5)|d|/l,
     with the closed slope forms (finite at d = 0)."""
-    sf, ell = theta[0], theta[1]
-    s = _SQRT5 * torch.abs(d) / ell
-    e = sf * sf * torch.exp(-s)
-    k00 = (1.0 + s + s * s / 3.0) * e
-    g = (5.0 / 3.0) * (d / (ell * ell)) * (1.0 + s) * e
-    k11 = (5.0 / (3.0 * ell * ell)) * (1.0 + s - s * s) * e
-    return k00, -g, g, k11
+    return _matern52_pairs(d, *_matern52_chain(theta))
 
 
 _BASE_BLOCKS_D = {"se": se_blocks_d, "matern52": matern52_blocks_d}
@@ -111,17 +132,17 @@ def assemble_blocks(blocks, nid_row, nid_col):
     )
 
 
-def _gibbs_pair(sf, la, dla, lb, dlb, d, sel: int):
+def _gibbs_pair(sf2, la, dla, lb, dlb, d, sel: int):
     """Gibbs-tanh covariance entries of one derivative block on broadcast-
     compatible operands (the per-pair function of the reference's evidence
     kernel): sel 0 = value-value, 1 = value-slope (column derivative),
-    2 = slope-value (row derivative), 3 = slope-slope. Only the selected
-    block's math is evaluated."""
+    2 = slope-value (row derivative), 3 = slope-slope; ``sf2`` is
+    sigma_f^2. Only the selected block's math is evaluated."""
     u = la * la
     v = lb * lb
     inv_S = 1.0 / (u + v)
     d2 = d * d
-    k = (sf * sf) * torch.sqrt(2.0 * la * lb * inv_S) * torch.exp(-d2 * inv_S)
+    k = sf2 * torch.sqrt(2.0 * la * lb * inv_S) * torch.exp(-d2 * inv_S)
     if sel == 0:
         return k
     up = 2.0 * la * dla
@@ -145,7 +166,8 @@ def _gibbs_pair(sf, la, dla, lb, dlb, d, sel: int):
 def _gibbs_pair_blocks(sf, la, dla, lb, dlb, d):
     """All four Gibbs-tanh blocks (k00, k10, k01, k11) on broadcast
     operands: the reference evaluates every block at every pair."""
-    return tuple(_gibbs_pair(sf, la, dla, lb, dlb, d, sel) for sel in (0, 2, 1, 3))
+    sf2 = sf * sf
+    return tuple(_gibbs_pair(sf2, la, dla, lb, dlb, d, sel) for sel in (0, 2, 1, 3))
 
 
 def _tanh_warp(x, l1, l2, lw, x0):
@@ -187,6 +209,31 @@ def matern52_cov_fused(X, nid, theta):
     return _cov_fused(matern52_blocks, X, nid, theta)
 
 
+def _cov_fused_soa(blocks_fn, X, nid, thetaT):
+    return assemble_blocks(
+        blocks_fn(X[:, None, None], X[None, :, None], thetaT),
+        nid[:, None, None], nid[None, :, None],
+    )
+
+
+def se_cov_fused_soa(X, nid, thetaT):
+    """Chains-minor SE covariance with every entry computed: X (N,), nid
+    (N,), thetaT (2, C) -> K (N, N, C)."""
+    return _cov_fused_soa(se_blocks, X, nid, thetaT)
+
+
+def gibbs_tanh_cov_fused_soa(X, nid, thetaT):
+    """Chains-minor Gibbs-tanh covariance with every entry computed:
+    thetaT (5, C) -> K (N, N, C)."""
+    return _cov_fused_soa(gibbs_tanh_blocks, X, nid, thetaT)
+
+
+def matern52_cov_fused_soa(X, nid, thetaT):
+    """Chains-minor Matern-5/2 covariance with every entry computed:
+    thetaT (2, C) -> K (N, N, C)."""
+    return _cov_fused_soa(matern52_blocks, X, nid, thetaT)
+
+
 @functools.lru_cache(maxsize=64)
 def _triu_index_maps(n: int):
     """Upper-triangle (row, col) index vectors of length n(n+1)/2 and the
@@ -211,6 +258,38 @@ def _pair_groups(nid: tuple):
     return groups, np.argsort(order)
 
 
+class _ExpandRow(torch.autograd.Function):
+    """A chain row (C,) -> (n, C), repeated n times. Autograd's own sum over
+    broadcast rows groups the chains by the batch's width, so a chain's
+    gradient would depend on how many chains share the call and a sharded
+    run (`parallel.mesh`) would leave the unsharded one's bits. The
+    backward here sums each chain's n cotangents in a fixed order, the
+    same for any width: (k, m) blocks, k ~ sqrt(n), each of the two sums a
+    scan down the columns, which PyTorch runs one column a thread in order
+    on the card and on the CPU. Expand a chain's factors after the
+    arithmetic that involves the chain alone, which then stays (C,)."""
+
+    @staticmethod
+    def forward(ctx, row, n: int):
+        return row.expand(n, row.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        n, c = g.shape
+        k = max(1, math.isqrt(n))
+        m = -(-n // k)
+        # zero rows to k * m; a second column where there is one, since a
+        # scan over a single column takes a parallel route on the card
+        g = torch.nn.functional.pad(g, (0, 1 if c == 1 else 0, 0, k * m - n))
+        s = g.reshape(k, m, g.shape[1]).cumsum(0)[-1]  # (m, C')
+        return s.cumsum(0)[-1, :c].clone(), None
+
+
+def _expand_rows(rows, n: int):
+    """Chain rows, each (C,) -> each (n, C) (`_ExpandRow`)."""
+    return [_ExpandRow.apply(t, n) for t in rows]
+
+
 def gibbs_tanh_cov_fused_soa_sym(X, nid, thetaT):
     """Symmetric chains-minor Gibbs-tanh covariance: X (N,), nid (N,) in
     {0, 1}, thetaT (5, C) -> K (N, N, C).
@@ -224,40 +303,43 @@ def gibbs_tanh_cov_fused_soa_sym(X, nid, thetaT):
     rows, cols, pid = _triu_index_maps(X.shape[0])
     groups, inv = _pair_groups(tuple(int(v) for v in nid.tolist()))
     dev = thetaT.device
-    sf = thetaT[0]
-    l, dl = _tanh_warp(X[:, None], *thetaT[1:5])  # (N, C) each
+    l, dl = _tanh_warp(X[:, None], *_expand_rows(thetaT[1:5], X.shape[0]))  # (N, C) each
     parts = []
+    sf2 = thetaT[0] * thetaT[0]
     for sel, idx in groups:
         r = torch.as_tensor(rows[idx], device=dev)
         c = torch.as_tensor(cols[idx], device=dev)
         d = (X[r] - X[c])[:, None]  # (pairs, 1): chain-free
-        parts.append(_gibbs_pair(sf, l[r], dl[r], l[c], dl[c], d, sel))
+        sf2_p = _ExpandRow.apply(sf2, len(idx))
+        parts.append(_gibbs_pair(sf2_p, l[r], dl[r], l[c], dl[c], d, sel))
     vals = torch.cat(parts)[torch.as_tensor(inv, device=dev)]  # (Np, C)
     return vals[torch.as_tensor(pid, device=dev)]
 
 
-def _pairs_sym(X, nid, thetaT, blocks_d):
+def _pairs_sym(X, nid, thetaT, chain, pairs):
     """Upper-triangle pairs of a stationary kernel at static separations,
-    mirrored to (N, N, C)."""
+    mirrored to (N, N, C): ``pairs(d, *chain(thetaT))``, the per-chain
+    factors expanded to the pairs (`_ExpandRow`)."""
     rows, cols, pid = _triu_index_maps(X.shape[0])
     dev = thetaT.device
     r = torch.as_tensor(rows, device=dev)
     c = torch.as_tensor(cols, device=dev)
     d = (X[r] - X[c])[:, None]
-    vals = assemble_blocks(blocks_d(d, thetaT), nid[r][:, None], nid[c][:, None])
+    blocks = pairs(d, *_expand_rows(chain(thetaT), d.shape[0]))
+    vals = assemble_blocks(blocks, nid[r][:, None], nid[c][:, None])
     return vals[torch.as_tensor(pid, device=dev)]
 
 
 def se_cov_fused_soa_sym(X, nid, thetaT):
     """Symmetric chains-minor SE covariance: X (N,), nid (N,), thetaT
     (2, C) -> K (N, N, C); the N(N+1)/2 upper pairs, mirrored."""
-    return _pairs_sym(X, nid, thetaT, se_blocks_d)
+    return _pairs_sym(X, nid, thetaT, _se_chain, _se_pairs)
 
 
 def matern52_cov_fused_soa_sym(X, nid, thetaT):
     """Symmetric chains-minor Matern-5/2 covariance (see
     `se_cov_fused_soa_sym`)."""
-    return _pairs_sym(X, nid, thetaT, matern52_blocks_d)
+    return _pairs_sym(X, nid, thetaT, _matern52_chain, _matern52_pairs)
 
 
 def beta_warp_pdf(a, b, x):

@@ -572,3 +572,31 @@ def test_per_chain_route_graph_equals_eager(dev, monkeypatch):
         (ge,) = torch.autograd.grad(ve.sum(), t)
         torch.testing.assert_close(v, ve.detach(), rtol=1e-12, atol=0)
         torch.testing.assert_close(g, ge, rtol=1e-12, atol=1e-12 * float(ge.abs().max()))
+
+
+def test_log_marginal_batch_mesh_nccl_world_one(dev, problem):
+    """``log_marginal_batch(mesh=make_mesh())`` at world size 1 on NCCL: the
+    rank's block is every chain, one kernel launch, gathered through NCCL;
+    the same bits as the call without a mesh, value and gradient."""
+    import torch.distributed as dist
+
+    from gptools_tpu_torch.parallel import make_mesh
+    from gptools_tpu_torch.parallel import mesh as pmesh
+
+    prob, _ = problem
+    th = _draws(1024, torch.float64, dev, seed=3).T.contiguous()
+    mesh = make_mesh()
+    try:
+        assert dist.get_backend() == "nccl"
+        n0, c0 = evidence_cuda.LAUNCHES["gibbs_tanh"], pmesh.COLLECTIVE_CALLS["density"]
+        got = prob.model.log_marginal_batch(th, prob.data, mesh=mesh)
+        assert evidence_cuda.LAUNCHES["gibbs_tanh"] == n0 + 1
+        assert pmesh.COLLECTIVE_CALLS["density"] == c0 + 1
+        assert torch.equal(got, prob.model.log_marginal_batch(th, prob.data))
+        t = th.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(prob.model.log_marginal_batch(t, prob.data, mesh=mesh).sum(), t)
+        t = th.clone().requires_grad_(True)
+        (g0,) = torch.autograd.grad(prob.model.log_marginal_batch(t, prob.data).sum(), t)
+        assert torch.equal(g, g0)
+    finally:
+        dist.destroy_process_group()
