@@ -101,8 +101,9 @@ Phases (any failure raises and exits non-zero; no phase falls back):
    config 2 through ``run_sampler(..., "nuts")`` at its own protocol (8
    chains, 500 + 1000); (7c) config 3 through ``"hmc"`` (16 chains, 32
    steps, `HMC_CUT` warmup + samples, cut from 500 + 800); (7d) config 4
-   through ``smc_then_nuts`` (whitened, 1024 chains, 150 + 350, max_depth
-   8); (7e) config 2 through ``"pt"`` (4 temperatures x 16 chains, 200 +
+   through ``smc_then_nuts`` (whitened, 1024 chains, `SMC_NUTS_CUT` warmup +
+   samples, cut from the pipeline's 150 + 350, max_depth 8); (7e) config 2
+   through ``"pt"`` (4 temperatures x 16 chains, 200 +
    400, 16 steps; the cold rung's draws and divergences); each gated on
    R-hat <= 1.1, divergences <= 1e-3 of draws and the golden rule; (7f)
    config 4 through ``"advi"`` (mean-field, 1500 steps, 16 ELBO draws),
@@ -133,8 +134,10 @@ Phases (any failure raises and exits non-zero; no phase falls back):
    RQ(x2)) + noise`` on a 12 x 12 grid with 12 slopes (N = 156, `GRID_C`),
    a `ChainRuleKernel` SE on config 2's data (also equal to the SE), and a
    Gibbs-Gauss model under a `SortedUniformJointPrior` (its density in u,
-   through the `OrderedIntervalBijector`); then the CUDA launches of one
-   eager density call of each model (torch.profiler).
+   through the `OrderedIntervalBijector`); after phase 10, the CUDA
+   launches of one eager density call of each model (torch.profiler: the
+   script's first profiler session, which slows every later launch of the
+   process on the host, so phases 9 and 10 run before it).
 
 9. (run right after phase 8, before phase 3b) the chains sharded over a
    mesh (`gptools_tpu_torch.parallel`), float64, each sharded run held to
@@ -154,12 +157,28 @@ Phases (any failure raises and exits non-zero; no phase falls back):
    gradient through the route at 1024 thetas, 512 a rank, against one
    unsharded call at 1024.
 
+10. (run right after phase 9, before phase 3b) the reference's entry
+   points (`gptools_tpu_torch.examples`) on the card, float64, each
+   ``main(argv)`` called in this process with the evidence counts set to 0
+   just before and read just after (the wall, the launches by kind, the
+   plain-version and route calls; the run's kernel launched, no plain
+   call): (10a) ``run_config 1``, its theta within 1e-6 of
+   tests/golden_config1.json; (10b) ``run_config 4`` (SMC, 2048 particles,
+   8 mutations), every printed mean finite and within 0.5 posterior std of
+   tests/golden_config4.json; (10c) ``sine_derivative_constraint``, its
+   NUTS split R-hat <= 1.1 and its predicted slope at x = 1 within 3 of
+   its std of 2 cos 2; (10d) ``multimodal_pt --warmup 100 --samples 100``,
+   finite summaries and PT's swap acceptance per rung pair; (10e)
+   ``python -m gptools_tpu_torch.examples.run_config 1`` as its own
+   process, run beside 10d: exit 0 and 10a's theta lines.
+
 The last three lines of standard output are the card line, the kernel
 table as JSON and ``{"ok": true, "device": {...}}``.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -231,15 +250,17 @@ CONFIG1_C = (9, 1023)
 # the SMC particles' C above)
 INFERENCE_C = {1: (9,), 2: (8, 64), 3: (16,), 4: (16,)}
 # config 3's HMC in phase 7: warmup + samples, cut from the protocol's
-# 500 + 800 (16 chains x 32 leapfrogs a transition, host-paced)
-HMC_CUT = (200, 300)
+# 500 + 800 (16 chains x 32 leapfrogs a transition, host-paced), and from
+# 200 + 300 to keep the script within 900 s on a slower host (PERF.md, §7)
+HMC_CUT = (100, 150)
+SMC_NUTS_CUT = (75, 150)  # 7d's warmup + samples, cut from the pipeline's 150 + 350
 ROUTE_N_POINTS = 60  # config 4 at 60 points: N = 62 > N_MAX, the route on the card
 ROUTE_C = 256
 # phase 8: the free-nu Matern's NUTS, the reference test's protocol (chains,
-# warmup, samples; tests/test_parity.py:241-246) and the run here, its
-# samples cut from 400 to 300 to keep phase 8 within 150 s (PERF.md, §6)
+# warmup, samples; tests/test_parity.py:241-246) and the run here, cut to
+# 150 + 150 to keep the script within 900 s (PERF.md, §7)
 FREE_NU_PROTOCOL = (8, 300, 400)
-FREE_NU_RUN = (8, 300, 300)
+FREE_NU_RUN = (8, 150, 150)
 ZOO_C = 256  # 8c's thetas per parity call
 GRID_C = 64  # 8c's thetas for the 2-D grid (N = 156)
 # phase 9: (chains, warmup, samples) of each sharded run, and the largest
@@ -248,6 +269,11 @@ GRID_C = 64  # 8c's thetas for the 2-D grid (N = 156)
 MESH_RUNS = {"9a": (1024, 75, 150), "9b": (2048, 75, 150), "9c": (1024, 25, 25)}
 MESH_TOL = 1e-10
 MESH_WORKER_TIMEOUT = 300
+# phase 10
+EXAMPLE_SUBPROCESS_TIMEOUT = 300
+MEAN_GATE_STDS = 0.5  # 10b: each SMC mean within this many posterior stds of the golden
+SLOPE_GATE_STDS = 3.0  # 10c: the predicted slope within this many of its stds of 2 cos 2
+_PARAM_LINE = r"^\s+(\S+) = (\S+) \+- (\S+)\s+\[ESS (\S+), Rhat (\S+)\]$"
 
 
 def fail(msg):
@@ -1150,12 +1176,16 @@ def inference_phase(dev, card):
     sampler_gates("7c config3 hmc", 3, res, wall, card)
     out["7c"] = ("matern52", n)
 
-    # 7d: config 4 through smc_then_nuts, whitened, the pipeline's defaults
+    # 7d: config 4 through smc_then_nuts, whitened, cut from the pipeline's
+    # 150 + 350 to SMC_NUTS_CUT for the script's time (phase 10 needs it)
     p4 = configs.config4_gibbs_smc(dtype=torch.float64, device=dev)
+    warm, samp = SMC_NUTS_CUT
     res, wall, n = counted(
-        "7d config4 smc_then_nuts (whiten, 1024 chains, 150 + 350, max_depth 8, 1024 "
-        "particles, f64)", "gibbs_tanh", lambda: smc_then_nuts(p4.model, p4.data, gen()), card)
-    per_transition("7d", res, n, 150 + 350)
+        f"7d config4 smc_then_nuts (whiten, 1024 chains, {warm} + {samp}: cut from the "
+        f"pipeline's 150 + 350, max_depth 8, 1024 particles, f64)", "gibbs_tanh",
+        lambda: smc_then_nuts(p4.model, p4.data, gen(), num_warmup=warm, num_samples=samp),
+        card)
+    per_transition("7d", res, n, warm + samp)
     print(f"phase7 7d: SMC rounds {res.diagnostics['smc_rounds']}")
     sampler_gates("7d config4 smc+nuts", 4, res, wall, card)
     out["7d"] = ("gibbs_tanh", n)
@@ -1551,8 +1581,8 @@ def drop_graphs(models):
 
 
 def zoo_phase(dev, card):
-    """Phase 8: 8a, 8b and 8c, then the CUDA launches of one eager density
-    call of each model (torch.profiler; phase 3b's sessions follow)."""
+    """Phase 8: 8a, 8b and 8c; returns their models for
+    `zoo_launch_counts`."""
     models = {}
     walls = []
     for part in (free_nu_phase, zoo_map_phase, zoo_parity_phase):
@@ -1563,6 +1593,13 @@ def zoo_phase(dev, card):
         walls.append(time.perf_counter() - t0)
     t_a, t_b, t_c = walls
     print(f"phase8 walls: 8a {t_a:.1f} s, 8b {t_b:.1f} s, 8c {t_c:.1f} s")
+    return models
+
+
+def zoo_launch_counts(models):
+    """Phase 8's last part, run after phase 10 (its torch.profiler session
+    slows every later launch of the process on the host): the CUDA launches
+    of one eager density call of each of phase 8's models."""
     from gptools_tpu_torch.models import gp as gp_mod
 
     # launches of one eager call of each model (a graph replay is one
@@ -1739,6 +1776,130 @@ def mesh_phase(dev, card):
           f"the library's load included); unsharded in this process {wall0:.3f} s")
     print(f"phase9 walls: {time.perf_counter() - t_start:.1f} s")
     return total
+
+
+def example_run(tag, kind, fn, card):
+    """``fn()`` (an example's ``main``) with the evidence counts set to 0
+    just before and read just after, its output captured and echoed; gates
+    the ``kind`` kernel's launches > 0 and no plain-version call. Returns
+    (result, output, launches)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from gptools_tpu_torch.ops import evidence_cuda as ec
+
+    torch.cuda.synchronize()
+    ec.reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"phase10 {tag} | {line}")
+    launches, routes = dict(ec.LAUNCHES), dict(ec.ROUTE_CALLS)
+    plain = dict(ec.PLAIN_CALLS)
+    n = sum(launches.values())
+    print(f"phase10 {tag}: wall {wall:.3f} s; evidence kernel launches {launches}, "
+          f"plain-version calls {plain}, route calls {routes}; host wall per density call "
+          f"{1e3 * wall / max(n, 1):.3f} ms ({card})")
+    if launches[kind] <= 0 or sum(plain.values()):
+        fail(f"phase10 {tag}: the {kind} kernel was not launched, or a plain version ran")
+    return res, out, launches
+
+
+def _theta_lines(out):
+    return [ln for ln in out.splitlines() if ln.startswith("   MAP log posterior")
+            or re.match(r"^\s+k\.\S+ = \S+$", ln)]
+
+
+def examples_phase(dev, card):
+    """Phase 10: the reference's entry points (`gptools_tpu_torch.examples`)
+    on the card, float64, each ``main(argv)`` called in this process with
+    the evidence counts set to 0 around it, then ``run_config 1`` as its
+    own process. Returns {run: launches by kind}."""
+    import torch
+
+    from gptools_tpu_torch.examples import multimodal_pt, run_config
+    from gptools_tpu_torch.examples import sine_derivative_constraint as sine
+    from gptools_tpu_torch.utils.diagnostics import split_rhat
+
+    t_start = time.perf_counter()
+    out = {}
+
+    # 10a: config 1's MAP (9 starts, 200 L-BFGS steps) against its golden
+    res, text_a, out["10a"] = example_run("10a run_config 1", "se",
+                                          lambda: run_config.main(["1"]), card)
+    gold = golden(1)
+    rel = float(np.max(np.abs(res.theta.cpu().numpy() / np.asarray(gold["theta"]) - 1.0)))
+    print(f"phase10 10a: theta {res.theta.cpu().numpy().tolist()} (golden {gold['theta']}), "
+          f"max rel err {rel:.3e} (tol 1e-6)")
+    if not rel <= 1e-6:
+        fail("phase10 10a: run_config 1's theta disagrees with tests/golden_config1.json")
+
+    # 10b: config 4 through SMC (2048 particles, 8 mutations, uncut)
+    res, text, out["10b"] = example_run("10b run_config 4", "gibbs_tanh",
+                                        lambda: run_config.main(["4"]), card)
+    gold = golden(4)
+    rows = [re.match(_PARAM_LINE, ln) for ln in text.splitlines()]
+    rows = {m.group(1): m for m in rows if m}
+    means = np.array([float(rows[n].group(2)) if n in rows else np.nan
+                      for n in gold["params"]])
+    z = (means - np.asarray(gold["mean"])) / np.asarray(gold["std"])
+    print(f"phase10 10b: printed means {means.tolist()}, golden {gold['mean']}, in "
+          f"posterior stds z {np.round(z, 3).tolist()} (gate |z| <= {MEAN_GATE_STDS})")
+    if not np.isfinite(means).all() or not np.all(np.abs(z) <= MEAN_GATE_STDS):
+        fail("phase10 10b: run_config 4's means are not finite or not at the golden's")
+
+    # 10c: the sine example (MAP, NUTS 8 chains 300 + 500, the slope at x = 1)
+    res, text, out["10c"] = example_run("10c sine_derivative_constraint", "se",
+                                        lambda: sine.main([]), card)
+    rhat = float(split_rhat(res["posterior"].thetas).max())
+    slope, sd, true = res["slope"], res["slope_std"], 2 * np.cos(2.0)
+    print(f"phase10 10c: NUTS max split R-hat {rhat:.4f} (gate {RHAT_GATE}); slope at x = 1 "
+          f"{slope:.4f} +- {sd:.4f}, true {true:.4f}, |d| / std "
+          f"{abs(slope - true) / sd:.3f} (gate {SLOPE_GATE_STDS})")
+    if not rhat <= RHAT_GATE or not abs(slope - true) <= SLOPE_GATE_STDS * sd:
+        fail("phase10 10c: the sine example's NUTS R-hat or slope fails its gate")
+
+    # 10e, the module entry from a clean process, runs beside 10d (its own
+    # process and context on the card; it would add ~20 s of wall alone)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "gptools_tpu_torch.examples.run_config", "1"],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # 10d: multimodal_pt, NUTS / PT / SMC+ChEES at 16 chains, 100 + 100
+        res, text, out["10d"] = example_run(
+            "10d multimodal_pt --warmup 100 --samples 100 (10e beside it)", "gibbs_tanh",
+            lambda: multimodal_pt.main(["--warmup", "100", "--samples", "100"]), card)
+        finite = all(bool(torch.isfinite(r.thetas).all()) for r in res.values())
+        means = re.findall(r"mean\s+(\S+)\s+sd\s+(\S+)\s+R-hat (\S+)", text)
+        finite = finite and len(means) == 15 and all(np.isfinite(float(v)) for m in means
+                                                     for v in m)
+        swap = res["pt"].diagnostics["swap_accept"].cpu().numpy()
+        print(f"phase10 10d: PT swap acceptance per rung pair {np.round(swap, 4).tolist()}; "
+              f"summaries finite: {finite}")
+        if not finite or swap.shape != (5,) or not np.isfinite(swap).all():
+            fail("phase10 10d: non-finite summaries or no swap acceptance per rung pair")
+        stdout, stderr = proc.communicate(timeout=EXAMPLE_SUBPROCESS_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    same = _theta_lines(stdout) == _theta_lines(text_a) != []
+    print(f"phase10 10e: python -m gptools_tpu_torch.examples.run_config 1: exit "
+          f"{proc.returncode}, done {time.perf_counter() - t0:.3f} s after its start (beside "
+          f"10d, which it waited for); theta lines {_theta_lines(stdout)}, the same as 10a's: "
+          f"{same}")
+    if proc.returncode != 0 or not same:
+        print(stderr[-4000:], file=sys.stderr)
+        fail("phase10 10e: the module entry failed or printed another optimum")
+    print(f"phase10 walls: {time.perf_counter() - t_start:.1f} s")
+    return out
 
 
 KIND_IDS = {"0": "gibbs_tanh", "1": "se", "2": "matern52"}
@@ -1932,8 +2093,9 @@ def main():
 
     # ---- phase 8: the rest of the kernel zoo, through the per-chain route -
     # Host-paced like phase 7, so before phase 3b's profiler sessions; it
-    # launches neither CUDA kernel.
-    zoo_phase(dev, card)
+    # launches neither CUDA kernel. Its launch counts, a profiler session,
+    # wait until after phase 10.
+    zoo_models = zoo_phase(dev, card)
 
     done("8")
 
@@ -1941,6 +2103,15 @@ def main():
     mesh_launches = mesh_phase(dev, card)
 
     done("9")
+
+    # ---- phase 10: the reference's entry points -------------------------
+    # Host-paced like phases 7-9, so before phase 3b's profiler sessions.
+    example_launches = examples_phase(dev, card)
+
+    done("10")
+
+    # ---- phase 8's launch counts: the first torch.profiler session ------
+    zoo_launch_counts(zoo_models)
 
     # ---- phase 3b: covariance-kernel parity and times --------------------
     cov_table = {}
@@ -2028,6 +2199,11 @@ def main():
         table[k]["launches_by_path"][run] = n
     table["gibbs_tanh"]["launches"] += mesh_launches
     table["gibbs_tanh"]["launches_by_path"]["9"] = mesh_launches
+    for run, by_kind in example_launches.items():
+        for k, n in by_kind.items():
+            if n:
+                table[k]["launches"] += n
+                table[k]["launches_by_path"][run] = n
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -2035,7 +2211,7 @@ def main():
         "route": "cuda",
         "source": SOURCE,
         "replaces": REPLACES,
-        "launches": row["launches"],  # phase 4's float32 path, phase 7's and 9's runs
+        "launches": row["launches"],  # phase 4's float32 path, phases 7, 9 and 10
         "launches_by_path": row["launches_by_path"],
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],  # per call through the wrapper, as in every earlier run

@@ -14,7 +14,19 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["run_sampler", "model_logp"]
+__all__ = [
+    "run_sampler",
+    "model_logp",
+    "SampleResult",
+    "hmc",
+    "nuts",
+    "smc",
+    "chees",
+    "advi",
+    "map_fit",
+    "pipeline",
+    "pt",
+]
 
 
 def run_sampler(
@@ -35,8 +47,6 @@ def run_sampler(
     `pt.sample`), ``"smc"``, ``"advi"``, ``"smc+nuts"`` / ``"smc-nuts"``
     and ``"smc+chees"`` / ``"smc-chees"`` (`pipeline`). Returns a
     `SampleResult` whose ``thetas`` are (chains, samples, P)."""
-    from gptools_tpu_torch.infer import advi, chees, hmc, nuts, pipeline, pt, smc
-
     if sampler in ("nuts", "hmc", "chees"):
         u0 = _initial_positions(model, generator, num_chains, init, data.dtype, data.device)
         run = {"nuts": nuts.sample, "hmc": hmc.sample, "chees": chees.sample}[sampler]
@@ -110,3 +120,9 @@ def _initial_positions(model, generator, num_chains, init, dtype, device):
 def _attach_thetas(model, result):
     """The result with its constrained draws (chains, samples, P)."""
     return result._replace(thetas=model.theta_of_u(result.u))
+
+
+# The submodules import the helpers above from this package, so they come
+# last.
+from gptools_tpu_torch.infer import advi, chees, hmc, map_fit, nuts, pipeline, pt, smc  # noqa: E402
+from gptools_tpu_torch.infer.hmc import SampleResult  # noqa: E402

@@ -94,10 +94,22 @@ class Dataset:
     def device(self) -> torch.device:
         return self.y.device
 
+    @property
+    def has_transform(self) -> bool:
+        return self.T is not None
+
+    def astype(self, dtype: torch.dtype) -> "Dataset":
+        """The same observations with points, values, errors and ``T`` in
+        ``dtype`` (the ids stay int32), on the same device."""
+        return Dataset(
+            self.Xf.to(dtype), self.nid, self.y.to(dtype), self.err_y.to(dtype),
+            self.multi_indices, None if self.T is None else self.T.to(dtype),
+        )
+
     def __repr__(self):
         return (
             f"Dataset(M={self.num_obs}, Q={self.num_latent}, D={self.num_dim}, "
-            f"orders={self.multi_indices}, transformed={self.T is not None}, "
+            f"orders={self.multi_indices}, transformed={self.has_transform}, "
             f"device={self.device})"
         )
 

@@ -557,12 +557,9 @@ class GPModel:
 
     def _mean_at(self, theta, X, nid, multi_indices):
         """The mean at points X (N, D) of orders nid: theta (P,) -> (N,),
-        (B, P) -> (B, N), through the chains-minor `mean_vector`."""
-        tm = self._theta_mean(theta)
-        Xt = X.to(theta.dtype)
-        if theta.ndim == 1:
-            return mean_vector(self.mean, tm[:, None], Xt, nid, multi_indices)[:, 0]
-        return mean_vector(self.mean, tm.T, Xt, nid, multi_indices).T
+        (B, P) -> (B, N)."""
+        return assemble.mean_vector(self.mean, self._theta_mean(theta), X.to(theta.dtype), nid,
+                                    multi_indices)
 
     def _cov_points(self, data: Dataset) -> cov_cuda.CovPoints:
         """The covariance kernel's points of one dataset, made once and

@@ -20,6 +20,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from gptools_tpu_torch.ops import derivs
+from gptools_tpu_torch.ops.derivs import MultiIndex
 from gptools_tpu_torch.utils.priors import JointPrior, UniformJointPrior
 
 __all__ = [
@@ -84,6 +85,26 @@ class MeanFunction:
     def _scalar(self, X: torch.Tensor, thetaT: torch.Tensor) -> torch.Tensor:
         """Mean values at points X (N, D) for chains thetaT (P, C) -> (N, C)."""
         raise NotImplementedError
+
+    def scalar(self, x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+        """``m(x, theta)`` for one parameter vector theta (P,) at a point x
+        (D,), or at a batch of points x (..., D) -> (...)."""
+        X = x.reshape(-1, self.num_dim)
+        return self._scalar(X, theta.reshape(-1, 1))[:, 0].reshape(x.shape[:-1])
+
+    def block_fn(self, a: MultiIndex) -> Callable:
+        """``(x, theta) -> d^a_x m(x, theta)``, elementwise over the points."""
+        return derivs.mean_block_fn(self.scalar, a)
+
+    def __call__(self, x, theta, n=0):
+        """The mean's derivative of order ``n`` at x (D,) or (..., D);
+        inputs that are not tensors become float64 tensors."""
+        a = derivs.normalize_multi_index(n, self.num_dim)
+
+        def t(v):
+            return v if torch.is_tensor(v) else torch.as_tensor(v, dtype=torch.float64)
+
+        return self.block_fn(a)(t(x), t(theta))
 
     def __add__(self, other):
         if isinstance(other, MeanFunction):

@@ -8,8 +8,9 @@ broadcasts instead: points enter as (N1, 1, D) and (1, N2, D), and a theta
 batch (B, P) as (B, 1, 1, P), so a batch of B thetas gives (B, N1, N2) in
 one evaluation. Where every order is 0 or the first derivative along one
 dimension (value and slope observations), all four blocks come from one
-nested tower (`derivs.first_order_blocks`). The mean half
-(``mean_vector``) is `gptools_tpu_torch.models.mean.mean_vector`.
+nested tower (`derivs.first_order_blocks`). The mean half, `mean_vector`,
+is the reference's layout, theta-major, of the chains-minor
+`gptools_tpu_torch.models.mean.mean_vector`, which it calls.
 """
 
 from __future__ import annotations
@@ -18,10 +19,11 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from gptools_tpu_torch.models import mean as _mean
 from gptools_tpu_torch.models.dataset import MultiIndex
 from gptools_tpu_torch.ops import derivs
 
-__all__ = ["cov_matrix", "delta_matrix", "all_pairs"]
+__all__ = ["cov_matrix", "delta_matrix", "mean_vector", "all_pairs"]
 
 
 def all_pairs(num_a: int, num_b: int) -> Tuple[Tuple[int, int], ...]:
@@ -123,3 +125,18 @@ def delta_matrix(
             mask = base_mask
         out = out + torch.where(mask, val[..., None, None], 0.0)
     return out
+
+
+def mean_vector(
+    mean_fn,
+    theta: torch.Tensor,
+    X: torch.Tensor,
+    nid: torch.Tensor,
+    multi_indices: Sequence[MultiIndex],
+) -> torch.Tensor:
+    """A mean function at each observation's derivative order: theta (P,)
+    -> (N,), or a batch (B, P) -> (B, N); X (N, D), nid (N,) ids into
+    ``multi_indices``."""
+    thetaT = theta.reshape(-1, theta.shape[-1]).T
+    out = _mean.mean_vector(mean_fn, thetaT, X, nid, multi_indices).T
+    return out.reshape(*theta.shape[:-1], X.shape[0])

@@ -159,8 +159,9 @@ def make_data(X, nid, y, err2, diag_factor: float, device, kind: str = "gibbs_ta
     return ev
 
 
-def supported(n: int) -> bool:
-    return 1 <= n <= N_MAX
+def supported(n: int, kind: Optional[str] = None) -> bool:
+    """True when the kernel covers N = ``n`` (and ``kind``, when given)."""
+    return (kind is None or kind in KINDS) and 1 <= n <= N_MAX
 
 
 def _nvcc() -> str:

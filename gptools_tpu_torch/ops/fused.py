@@ -8,7 +8,8 @@ Counterpart of `gptools_tpu.ops.fused`, in two halves:
   and `flagship_cov_soa`. They are the covariance half of the evidence
   kernel's plain version and of the batch evidence's chains-minor route
   (`models.gp`). The reference's full-matrix ``*_soa`` builders, every
-  entry computed, are here too; no path of the package calls them.
+  entry computed, are here too: `flagship_cov_soa` takes them when
+  ``symmetric`` is False.
 - single theta, theta (P,) -> (N, N), or a leading batch (B, P) ->
   (B, N, N): `se_cov_fused`, `gibbs_tanh_cov_fused`, `matern52_cov_fused`,
   `warped_cov_fused` and `flagship_cov` with its ``backend`` switch. They
@@ -350,19 +351,20 @@ def beta_warp_pdf(a, b, x):
     return torch.exp((a - 1.0) * torch.log(xc) + (b - 1.0) * torch.log1p(-xc) - log_beta)
 
 
-def warp_coords(input_warp, X, theta_w, need_slope: bool):
-    """Warped coordinates w(x) (N, C) of points X (N,) for the warp's
-    parameter rows ``theta_w`` (each (C,)), and the slope w'(x) (N, C) when
-    derivative observations exist (else None). The reference's
-    ``chains_minor=True`` form, with w broadcast to (N, C) for the
-    parameter-free LinearWarp too."""
+def warp_coords(input_warp, X, theta_w, need_slope: bool, chains_minor: bool = True):
+    """Warped coordinates w(x) of points X (N,) and the slope w'(x) when
+    derivative observations exist (else None). Chains-minor: the warp's
+    parameter rows ``theta_w`` are (C,) each and w, w' are (N, C), broadcast
+    to (N, C) for the parameter-free LinearWarp too; else they are scalars
+    and w, w' are (N,)."""
     from gptools_tpu_torch.ops.kernels import BetaWarp, LinearWarp
 
-    Xcol = X[:, None]
+    Xcol = X[:, None] if chains_minor else X
     if type(input_warp) is LinearWarp:
-        C = theta_w.shape[-1]
         scale = 1.0 / (input_warp.b - input_warp.a)
-        w = ((Xcol - input_warp.a) * scale).expand(X.shape[0], C)
+        w = (Xcol - input_warp.a) * scale
+        if chains_minor:
+            w = w.expand(X.shape[0], theta_w.shape[-1])
         return w, (torch.full_like(w, scale) if need_slope else None)
     if type(input_warp) is BetaWarp:
         a, b = theta_w[0], theta_w[1]
@@ -404,8 +406,7 @@ def warped_cov_fused(base_kind, input_warp, X, ids, theta):
     (B, P) -> (N, N) or (B, N, N)."""
     pb = {"se": 2, "matern52": 2}[base_kind]
     if theta.ndim == 1:
-        w, wp = warp_coords(input_warp, X, theta[pb:, None], True)  # (N, 1)
-        w, wp = w[:, 0], wp[:, 0]
+        w, wp = warp_coords(input_warp, X, theta[pb:], True, chains_minor=False)  # (N,)
     else:
         w, wp = warp_coords(input_warp, X, theta[:, pb:].T, True)  # (N, B)
         w, wp = w.T, wp.T
@@ -455,9 +456,13 @@ def classify_flagship(kernel):
     return kind, kernel.num_params, None
 
 
-def flagship_cov_soa(kernel, thetaT, X, nid, multi_indices):
+def flagship_cov_soa(kernel, thetaT, X, nid, multi_indices, symmetric: bool = True):
     """Chains-minor fused K: thetaT (P, C) -> (N, N, C) for a classified
-    kernel on 1-D points X (N, 1) or (N,)."""
+    kernel on 1-D points X (N, 1) or (N,). ``symmetric``: build the upper
+    triangle and mirror it, else every entry (the input-warped build is
+    symmetric only). Only the symmetric builders give each chain's K
+    independently of the batch's width (`_ExpandRow`), which the sharded
+    densities' exact equality needs."""
     cls = classify_flagship(kernel)
     if cls is None:
         raise ValueError(type(kernel).__name__)
@@ -467,11 +472,11 @@ def flagship_cov_soa(kernel, thetaT, X, nid, multi_indices):
     if input_warp is not None:
         return warped_cov_fused_soa_sym(kind, input_warp, Xf, ids, thetaT)
     builds = {
-        "se": se_cov_fused_soa_sym,
-        "gibbs_tanh": gibbs_tanh_cov_fused_soa_sym,
-        "matern52": matern52_cov_fused_soa_sym,
+        "se": (se_cov_fused_soa, se_cov_fused_soa_sym),
+        "gibbs_tanh": (gibbs_tanh_cov_fused_soa, gibbs_tanh_cov_fused_soa_sym),
+        "matern52": (matern52_cov_fused_soa, matern52_cov_fused_soa_sym),
     }
-    return builds[kind](Xf, ids, thetaT)
+    return builds[kind][1 if symmetric else 0](Xf, ids, thetaT)
 
 
 def fused_supported(kernel, multi_indices, num_dim) -> bool:

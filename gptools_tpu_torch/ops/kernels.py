@@ -152,6 +152,14 @@ class Kernel:
     def num_params(self) -> int:
         return len(self.param_names)
 
+    @property
+    def num_free_params(self) -> int:
+        return sum(not f for f in self.fixed_params)
+
+    @property
+    def free_param_names(self):
+        return tuple(n for n, f in zip(self.param_names, self.fixed_params) if not f)
+
     def delta_terms(self):
         """``(param_offset, DiagonalNoiseKernel)`` white-noise terms."""
         return []

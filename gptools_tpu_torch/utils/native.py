@@ -19,7 +19,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["build", "library", "ess_batch", "split_rhat_batch"]
+__all__ = ["load", "build", "available", "ess_batch", "split_rhat_batch"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _SOURCE = _PKG.parent / "native" / "diagnostics.cpp"
@@ -31,7 +31,7 @@ _LIB = None
 
 def build() -> Path:
     """Compile the library if this source and flag hash has not been built;
-    return its path."""
+    return its path. A failed build raises with the compiler's output."""
     h = hashlib.sha256(_SOURCE.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     so = _BUILD_DIR / f"libgt_native_{h.hexdigest()[:16]}.so"
@@ -47,9 +47,9 @@ def build() -> Path:
     return so
 
 
-def library() -> ctypes.CDLL:
+def load() -> ctypes.CDLL:
     """The library, built and loaded at the first call, its entry points
-    typed."""
+    typed; a failed build raises."""
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
@@ -63,6 +63,15 @@ def library() -> ctypes.CDLL:
             raise RuntimeError(f"native diagnostics ABI {lib.gpt_abi_version()}, expected {_ABI}")
         _LIB = lib
     return _LIB
+
+
+def available() -> bool:
+    """True when the library builds (or is built) and loads."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _chains(chains) -> np.ndarray:
@@ -87,7 +96,7 @@ def ess_batch(chains, max_pairs: int = 64) -> np.ndarray:
     c = _chains(chains)
     m, n, d = c.shape
     out = np.empty((d,), np.float64)
-    library().gpt_ess_batch(_ptr(c), m, n, d, max_pairs, _ptr(out))
+    load().gpt_ess_batch(_ptr(c), m, n, d, max_pairs, _ptr(out))
     bad = ~np.isfinite(out)
     if bad.any():
         import torch
@@ -104,5 +113,5 @@ def split_rhat_batch(chains) -> np.ndarray:
     c = _chains(chains)
     m, n, d = c.shape
     out = np.empty((d,), np.float64)
-    library().gpt_split_rhat_batch(_ptr(c), m, n, d, _ptr(out))
+    load().gpt_split_rhat_batch(_ptr(c), m, n, d, _ptr(out))
     return out

@@ -98,6 +98,10 @@ class JointPrior:
     def bijector(self) -> bij.Bijector:
         return bij.bijector_from_bounds(self.bounds)
 
+    def __call__(self, theta: torch.Tensor) -> torch.Tensor:
+        """The reference's spelling ``hyperprior(theta)``: `log_prob`."""
+        return self.log_prob(theta)
+
     def __mul__(self, other: "JointPrior") -> "ProductJointPrior":
         mine = self.parts if isinstance(self, ProductJointPrior) else (self,)
         theirs = other.parts if isinstance(other, ProductJointPrior) else (other,)

@@ -11,7 +11,8 @@
   (`gptools_tpu.utils.native`, built by its Makefile) at rtol 1e-12, on AR(1)
   chains that stop the Geyer scan early and random walks that exhaust its
   pair budget (the FFT fallback);
-- a failed build raises.
+- a failed build raises; `load` (built at first use, then cached) and
+  `available`.
 """
 
 import jax
@@ -95,3 +96,30 @@ def test_failed_native_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(tnative, "_BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="c\\+\\+ failed"):
         tnative.build()
+
+
+@pytest.mark.parametrize("fresh", [True, False])
+def test_native_load_and_available(fresh, monkeypatch):
+    """The reference's entry names on the port's library: `load` returns
+    the bound library (the ABI the reference's loader checks), loaded anew
+    or from its cache, and `available` is True once it loads."""
+    if fresh:
+        monkeypatch.setattr(tnative, "_LIB", None)
+    lib = tnative.load()
+    assert lib is tnative.load() and tnative.available()
+    assert lib.gpt_abi_version() == jnative.load(auto_build=True).gpt_abi_version() == 2
+    x = _draws("ar1", seed=3, m=3, n=200, d=2)
+    np.testing.assert_allclose(tnative.split_rhat_batch(x), jnative.split_rhat_batch(x), **TOL)
+
+
+def test_native_load_without_build_and_available_after_failure(monkeypatch, tmp_path):
+    """A failed build makes `load` raise, leaves no library behind, and
+    makes `available` False."""
+    bad = tmp_path / "diagnostics.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(tnative, "_SOURCE", bad)
+    monkeypatch.setattr(tnative, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(tnative, "_LIB", None)
+    with pytest.raises(RuntimeError, match="c\\+\\+ failed"):
+        tnative.load()
+    assert not list(tmp_path.glob("*.so")) and not tnative.available()

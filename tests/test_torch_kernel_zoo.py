@@ -170,6 +170,36 @@ def test_metadata_matches_jax(name):
     assert tk.num_dim == jk.num_dim and tk.has_smooth == jk.has_smooth
 
 
+# the zoo above, the configs' kernels, the input warps and fixed parameters
+FREE_PARAM_KERNELS = {
+    **{name: build for name, (build, _, _) in KERNELS.items()},
+    "se_sigma_fixed": lambda m, xp: m.SquaredExponentialKernel(fixed_params=[True, False]),
+    "gibbs_tanh": lambda m, xp: m.GibbsKernel1dTanh(),
+    "gibbs_tanh_x0_fixed": lambda m, xp: m.GibbsKernel1dTanh(
+        fixed_params=[False, False, False, False, True]),
+    "matern52": lambda m, xp: m.Matern52Kernel(),
+    "beta_warped_matern52": lambda m, xp: m.WarpedKernel(m.Matern52Kernel(), m.BetaWarp()),
+    "linear_warped_se": lambda m, xp: m.WarpedKernel(m.SquaredExponentialKernel(),
+                                                     m.LinearWarp(0.0, 3.0)),
+    "noise_fixed_in_sum": lambda m, xp: (
+        m.SquaredExponentialKernel(fixed_params=[False, True])
+        + m.DiagonalNoiseKernel(fixed_params=[True])),
+    "product_fixed": lambda m, xp: (m.SquaredExponentialKernel()
+                                    * m.RationalQuadraticKernel(fixed_params=[True, False,
+                                                                              False])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FREE_PARAM_KERNELS))
+def test_free_params_match_jax(name):
+    """`Kernel.num_free_params` and `free_param_names` as the reference's."""
+    build = FREE_PARAM_KERNELS[name]
+    jk, tk = build(JK, jnp), build(TK, torch)
+    assert tk.num_free_params == jk.num_free_params
+    assert tk.free_param_names == jk.free_param_names
+    assert tk.num_free_params == len(tk.free_param_names) == sum(not f for f in tk.fixed_params)
+
+
 def test_delta_terms_and_costs():
     """Sums keep their parts' white noise at shifted offsets; products and
     scaled kernels refuse it; the per-entry cost adds up over the parts."""

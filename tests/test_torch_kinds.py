@@ -112,6 +112,53 @@ def test_flagship_cov_soa_and_classifier_match_jax(rng):
     assert tfused.classify_flagship(tkernels.MaternKernel(2.5, num_dim=2)) is None
 
 
+@pytest.mark.parametrize("symmetric", [None, True, False])
+@pytest.mark.parametrize("name", ["se", "matern52", "gibbs_tanh"])
+def test_flagship_cov_soa_symmetric_switch_matches_jax(rng, name, symmetric):
+    """``flagship_cov_soa(symmetric=...)``: the full-matrix and symmetric
+    builders against the reference's with the same switch (1e-12), and
+    against each other (1e-12). None is each side's default: the reference
+    reads its `SOA_SYMMETRIC` (True), and the port's default is True."""
+    assert jfused.SOA_SYMMETRIC is True
+    X, nid = _points(rng)
+    mis = ((0,), (1,))
+    jk, tk = {
+        "se": (jkernels.SquaredExponentialKernel(), tkernels.SquaredExponentialKernel()),
+        "matern52": (jkernels.Matern52Kernel(), tkernels.Matern52Kernel()),
+        "gibbs_tanh": (jkernels.GibbsKernel1dTanh(), tkernels.GibbsKernel1dTanh()),
+    }[name]
+    thetaT = rng.uniform(0.3, 1.2, (jk.num_params, 4))
+    args_t = (torch.tensor(thetaT), torch.tensor(X[:, None]), torch.tensor(nid), mis)
+    K_j = jfused.flagship_cov_soa(jk, jnp.asarray(thetaT), jnp.asarray(X[:, None]),
+                                  jnp.asarray(nid), mis, symmetric=symmetric)
+    K_t = tfused.flagship_cov_soa(tk, *args_t,
+                                  **({} if symmetric is None else {"symmetric": symmetric}))
+    np.testing.assert_allclose(K_t.numpy(), np.asarray(K_j), **TIGHT)
+    other = tfused.flagship_cov_soa(tk, *args_t, symmetric=symmetric is False)
+    np.testing.assert_allclose(K_t.numpy(), other.numpy(), **TIGHT)
+
+
+@pytest.mark.parametrize("warp", ["beta", "linear"])
+@pytest.mark.parametrize("chains_minor", [True, False])
+def test_warp_coords_matches_jax(rng, warp, chains_minor):
+    """`warp_coords` in both layouts: (N, C) for (C,) parameter rows, (N,)
+    for scalars (the reference's LinearWarp keeps (N, 1) chains-minor; the
+    port broadcasts it to (N, C))."""
+    jw, tw, P = {
+        "beta": (jkernels.BetaWarp(), tkernels.BetaWarp(), 2),
+        "linear": (jkernels.LinearWarp(-0.1, 1.3), tkernels.LinearWarp(-0.1, 1.3), 0),
+    }[warp]
+    X = np.sort(rng.uniform(0.05, 0.95, 7))
+    th = rng.uniform(0.5, 2.5, (P, 3)) if chains_minor else rng.uniform(0.5, 2.5, P)
+    w_j, wp_j = jfused.warp_coords(jw, jnp.asarray(X), jnp.asarray(th), True, chains_minor)
+    w_t, wp_t = tfused.warp_coords(tw, torch.tensor(X), torch.tensor(th), True,
+                                   chains_minor=chains_minor)
+    shape = (7, 3) if chains_minor else (7,)
+    assert w_t.shape == wp_t.shape == shape
+    np.testing.assert_allclose(w_t.numpy(), np.broadcast_to(np.asarray(w_j), shape), **TIGHT)
+    np.testing.assert_allclose(wp_t.numpy(), np.broadcast_to(np.asarray(wp_j), shape), **TIGHT)
+
+
 def test_betainc_value_and_gradient_match_jax(rng):
     a = rng.uniform(0.3, 3.0, 6)
     b = rng.uniform(0.3, 3.0, 6)

@@ -166,6 +166,33 @@ def test_zoo_prior_log_prob_matches_jax(rng, name):
     assert draws.shape == (512, jp.dim) and torch.isfinite(tp.log_prob(draws)).all()
 
 
+# every prior: the zoo above, config 4's product, and the configs' others
+_ALL_PRIORS = {
+    **_ZOO_PRIORS,
+    "config4_product": lambda m: _config4_priors(m),
+    "uniform": lambda m: m.UniformJointPrior([0.1, 0.2], [1.0, 2.0]),
+    "normal": lambda m: m.NormalJointPrior([0.0, 1.0], [1.0, 0.5]),
+    "lognormal": lambda m: m.LogNormalJointPrior([0.0, -0.7], [0.8, 0.8]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ALL_PRIORS))
+def test_prior_call_matches_jax(rng, name):
+    """``hyperprior(theta)``, the reference's spelling, is `log_prob`, and
+    matches the reference's call within 1e-12 (the same -inf outside the
+    support)."""
+    jp, tp = _ALL_PRIORS[name](jpri), _ALL_PRIORS[name](tpri)
+    th = rng.uniform(-0.2, 2.1, (128, jp.dim))
+    want = np.asarray(jax.vmap(jp)(jnp.asarray(th)))
+    got = tp(torch.tensor(th))
+    assert torch.equal(got, tp.log_prob(torch.tensor(th)))
+    got = got.numpy()
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    assert fin.any()
+    np.testing.assert_allclose(got[fin], want[fin], **TOL)
+
+
 _ZOO_BIJECTORS = {
     "exp": lambda m: m.ExpBijector(0.3),
     "neg_exp": lambda m: m.NegExpBijector(1.5),

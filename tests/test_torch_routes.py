@@ -18,7 +18,12 @@ float64 on the CPU.
   at rtol 1e-5 and within 1e-4 of the largest component: the two
   float32 covariance builds differ by their roundings; its factorization
   in float64 is checked exactly);
-- the per-chain route in chunks gives the unchunked values and gradients.
+- the per-chain route in chunks gives the unchunked values and gradients;
+- the single-point surface of the means (`MeanFunction.scalar`, `block_fn`
+  and ``__call__(x, theta, n)`` at orders 0, 1 and 2 for every mean),
+  `ops.assemble.mean_vector` (one theta and a batch),
+  `ops.derivs.normalize_multi_index` (values and refusals) and
+  `Dataset.has_transform` / `astype` against the reference's: 1e-12.
 """
 
 import jax
@@ -35,6 +40,9 @@ from gptools_tpu.ops import kernels as jk
 from gptools_tpu_torch import configs as tconfigs
 from gptools_tpu_torch import convert
 from gptools_tpu_torch.models import gp as tgp
+from gptools_tpu_torch.models import mean as tmean
+from gptools_tpu_torch.ops import assemble as tassemble
+from gptools_tpu_torch.ops import derivs as tderivs
 from gptools_tpu_torch.ops import evidence, evidence_cuda
 
 torch.set_num_threads(1)
@@ -233,3 +241,102 @@ def test_per_chain_route_in_chunks(monkeypatch):
     for a, b in zip(chunked, whole):
         np.testing.assert_allclose(a, b, rtol=1e-14, atol=1e-14)
     np.testing.assert_allclose(no_grad, whole[0], rtol=1e-14)
+
+
+def _means(mod, xp):
+    """name -> (mean, theta) for every mean of the reference."""
+    return {
+        "constant": (mod.ConstantMeanFunction(), [0.7]),
+        "linear": (mod.LinearMeanFunction(), [1.3, -0.4]),
+        "linear_2d": (mod.LinearMeanFunction(2), [1.3, -0.4, 0.2]),
+        "mtanh": (mod.MtanhMeanFunction1d(), [0.9, 0.05, 0.3, 1.0, 0.1]),
+        "sum": (mod.MtanhMeanFunction1d() + mod.ConstantMeanFunction(),
+                [0.9, 0.05, 0.3, 1.0, 0.1, -0.2]),
+        "arbitrary": (mod.ArbitraryMeanFunction(
+            lambda x, p: p[..., 0] * xp.sin(2.0 * x[..., 0]) + p[..., 1] * x[..., 0] ** 3,
+            1, ("a", "b")), [0.8, -0.3]),
+    }
+
+
+_MEAN_ORDERS = {1: [0, 1, 2], 2: [(0, 0), (1, 0), (0, 2)]}
+
+
+@pytest.mark.parametrize("name", ["constant", "linear", "linear_2d", "mtanh", "sum",
+                                  "arbitrary"])
+@pytest.mark.parametrize("order", [0, 1, 2])
+def test_mean_function_calls_match_jax(rng, name, order):
+    jm, th = _means(jmean, jnp)[name]
+    tm, _ = _means(tmean, torch)[name]
+    D = jm.num_dim
+    n = _MEAN_ORDERS[D][order]
+    X = rng.uniform(0.0, 1.5, (6, D))
+    a = _jax_multi_index(n, D)
+    want = np.asarray(jax.vmap(jm.block_fn(a), in_axes=(0, None))(jnp.asarray(X),
+                                                                    jnp.asarray(th)))
+    got = tm.block_fn(a)(torch.tensor(X), torch.tensor(th, dtype=torch.float64))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-13)
+    for i in range(2):
+        one = tm(X[i], th, n=n)
+        np.testing.assert_allclose(float(one), float(jm(X[i], th, n=n)), rtol=1e-12,
+                                   atol=1e-13)
+    if order == 0:
+        np.testing.assert_allclose(tm.scalar(torch.tensor(X[0]),
+                                             torch.tensor(th, dtype=torch.float64)).item(),
+                                   float(jm.scalar(jnp.asarray(X[0]), jnp.asarray(th))),
+                                   rtol=1e-12)
+
+
+def _jax_multi_index(n, D):
+    from gptools_tpu.ops.derivs import normalize_multi_index
+
+    return normalize_multi_index(n, D)
+
+
+@pytest.mark.parametrize("batch", [False, True])
+def test_assemble_mean_vector_matches_jax(rng, batch):
+    from gptools_tpu.ops import assemble as jassemble
+
+    jm, th = _means(jmean, jnp)["sum"]
+    tm, _ = _means(tmean, torch)["sum"]
+    X = rng.uniform(0.0, 1.5, (9, 1))
+    nid = np.array([0, 1, 2, 0, 0, 1, 2, 2, 0])
+    mis = ((0,), (1,), (2,))
+    thetas = np.asarray(th) + 0.05 * rng.standard_normal((3, len(th)))
+    want = np.stack([np.asarray(jassemble.mean_vector(jm, jnp.asarray(t), jnp.asarray(X),
+                                                      jnp.asarray(nid), mis)) for t in thetas])
+    arg = thetas if batch else thetas[0]
+    got = tassemble.mean_vector(tm, torch.tensor(arg), torch.tensor(X), torch.tensor(nid), mis)
+    np.testing.assert_allclose(got.numpy(), want if batch else want[0], rtol=1e-12,
+                               atol=1e-13)
+
+
+_MULTI_INDEX_CASES = [(0, 1), (2, 1), (0, 3), ((1, 0), 2), ((0, 2, 1), 3), (-1, 1), (1, 2),
+                      ((1,), 2), ((-1, 0), 2)]
+
+
+@pytest.mark.parametrize("case", range(len(_MULTI_INDEX_CASES)))
+def test_normalize_multi_index_matches_jax(case):
+    from gptools_tpu.ops import derivs as jderivs
+
+    n, D = _MULTI_INDEX_CASES[case]
+    try:
+        want = jderivs.normalize_multi_index(n, D)
+    except ValueError as e:
+        with pytest.raises(ValueError, match=str(e)[:20]):
+            tderivs.normalize_multi_index(n, D)
+        return
+    got = tderivs.normalize_multi_index(n, D)
+    assert got == want and type(got) is tuple
+
+
+@pytest.mark.parametrize("config", [4, 5])
+def test_dataset_has_transform_and_astype_match_jax(config):
+    jd = jconfigs.ALL_CONFIGS[config]().data
+    td = tconfigs.ALL_CONFIGS[config](device="cpu").data
+    assert td.has_transform == jd.has_transform == (config == 5)
+    j32, t32 = jd.astype(jnp.float32), td.astype(torch.float32)
+    for a in ("Xf", "y", "err_y") + (("T",) if config == 5 else ()):
+        assert getattr(t32, a).dtype == torch.float32
+        np.testing.assert_array_equal(getattr(t32, a).numpy(), np.asarray(getattr(j32, a)))
+    np.testing.assert_array_equal(t32.nid.numpy(), np.asarray(j32.nid))
+    assert t32.multi_indices == j32.multi_indices and t32.device == td.device
