@@ -67,12 +67,13 @@ Phases (any failure raises and exits non-zero; no phase falls back):
 5. the same pipelines in float64, with the same gates and the posterior
    moments held to tests/golden_config{4,2,3}.json by the rule of
    scripts/f32_parity.py (why not in float32: see the comment at phase 5);
-   then config 5 (1024 chains, 100 + 300; its transformed observation
-   sends the evidence to the route: route calls > 0, no launch, no plain
-   call) with the same gates and tests/golden_config5.json; config 5's
-   host wall and device time per leapfrog; and ``summarize_samples`` of
-   config 4's float64 draws on the card and on the host (the native
-   library), which must agree within 1e-6 in ESS and R-hat.
+   then config 5 (1024 chains, 100 + 100, cut from the protocol's 100 +
+   300; its transformed observation sends the evidence to the route: route
+   calls > 0, no launch, no plain call) with the same gates and
+   tests/golden_config5.json; config 5's host wall and device time per
+   leapfrog; and ``summarize_samples`` of config 4's float64 draws on the
+   card and on the host (the native library), which must agree within
+   1e-6 in ESS and R-hat.
 6. serving, configs 4, 2, 3 and 5 in float64, the covariance kernel's main
    path (config 3, a warped Matern, has no covariance kind: its pallas
    backend takes the fused build and launches nothing),
@@ -98,13 +99,14 @@ Phases (any failure raises and exits non-zero; no phase falls back):
    tests/golden_config1.json and its log posterior within 1e-8 + 1e-10
    |lp|, and the same starts through ``map_fit.minimize`` on the CPU
    within 1e-7 in u of the card's optimum for every converged start; (7b)
-   config 2 through ``run_sampler(..., "nuts")`` at its own protocol (8
-   chains, 500 + 1000); (7c) config 3 through ``"hmc"`` (16 chains, 32
+   config 2 through ``run_sampler(..., "nuts")`` (8 chains, `NUTS_CUT`
+   warmup + samples, cut from its protocol's 500 + 1000); (7c) config 3 through ``"hmc"`` (16 chains, 32
    steps, `HMC_CUT` warmup + samples, cut from 500 + 800); (7d) config 4
    through ``smc_then_nuts`` (whitened, 1024 chains, `SMC_NUTS_CUT` warmup +
    samples, cut from the pipeline's 150 + 350, max_depth 8); (7e) config 2
-   through ``"pt"`` (4 temperatures x 16 chains, 200 +
-   400, 16 steps; the cold rung's draws and divergences); each gated on
+   through ``"pt"`` (4 temperatures x 16 chains, `PT_CUT` warmup +
+   samples, cut from 200 + 400, 16 steps; the cold rung's draws and
+   divergences); each gated on
    R-hat <= 1.1, divergences <= 1e-3 of draws and the golden rule; (7f)
    config 4 through ``"advi"`` (mean-field, 1500 steps, 16 ELBO draws),
    gated on finite ELBOs whose last 100 average above the first 100, q's
@@ -155,7 +157,17 @@ Phases (any failure raises and exits non-zero; no phase falls back):
    process's unsharded run at 2048 chains and its kernel launched at
    C = 1024, its half, never at 2048; and config 5's log marginal and
    gradient through the route at 1024 thetas, 512 a rank, against one
-   unsharded call at 1024.
+   unsharded call at 1024; (9d) in this process, float64 and float32:
+   ``log_posterior_u_batch``'s value and gradient at 1024 chains against
+   the same chains in blocks of 512 + 512, 1 + 1023 and 256 x 4, a call
+   each, every chain the same bits (config 3: the kernel with aux mu and
+   w; warped_se_deriv: w and wp; se_noise: nd; config 5: the chains-minor
+   route; config 2, no aux channel, the control; RQ + SE on config 1's
+   data: the per-chain route), each density on its path, each largest
+   difference on a line of its own; (9e) config 3 at 1024 chains, SMC +
+   25 + 25, on two ranks sharing the card (gloo), each rank's draws
+   against one process's unsharded run and its kernel launched at
+   C = 512 only.
 
 10. (run right after phase 9, before phase 3b) the reference's entry
    points (`gptools_tpu_torch.examples`) on the card, float64, each
@@ -167,8 +179,8 @@ Phases (any failure raises and exits non-zero; no phase falls back):
    8 mutations), every printed mean finite and within 0.5 posterior std of
    tests/golden_config4.json; (10c) ``sine_derivative_constraint``, its
    NUTS split R-hat <= 1.1 and its predicted slope at x = 1 within 3 of
-   its std of 2 cos 2; (10d) ``multimodal_pt --warmup 100 --samples 100``,
-   finite summaries and PT's swap acceptance per rung pair; (10e)
+   its std of 2 cos 2; (10d) ``multimodal_pt`` at `MULTIMODAL_CUT`
+   warmup + samples (cut from 100 + 100), finite summaries and PT's swap acceptance per rung pair; (10e)
    ``python -m gptools_tpu_torch.examples.run_config 1`` as its own
    process, run beside 10d: exit 0 and 10a's theta lines.
 
@@ -233,7 +245,9 @@ SERVE_BUILDS = 5
 PATHS = {4: (12288, 75, 300, (12288, 1000, 1, 1023)),
          2: (4096, 100, 500, (4096, 1000, 1, 1023)),
          3: (4096, 100, 500, (4096, 1000, 1, 1023)),
-         5: (1024, 100, 300, ())}
+         # config 5's 300 samples cut to 100 to pay for phase 9d and 9e
+         # within the script's 900 s (PERF.md, section 7)
+         5: (1024, 100, 100, ())}
 # phase 4 (float32) runs configs 2 and 3 at fewer samples than phase 5, to
 # keep the script's wall with phase 7 in it (PR 6: 500 each)
 F32_SAMPLES = {2: 200, 3: 200}
@@ -253,7 +267,14 @@ INFERENCE_C = {1: (9,), 2: (8, 64), 3: (16,), 4: (16,)}
 # 500 + 800 (16 chains x 32 leapfrogs a transition, host-paced), and from
 # 200 + 300 to keep the script within 900 s on a slower host (PERF.md, §7)
 HMC_CUT = (100, 150)
-SMC_NUTS_CUT = (75, 150)  # 7d's warmup + samples, cut from the pipeline's 150 + 350
+# 7d's warmup + samples, cut from the pipeline's 150 + 350 (75 + 150 until
+# the script's runs on slower hosts passed 900 s; PERF.md, section 7)
+SMC_NUTS_CUT = (50, 100)
+NUTS_CUT = (250, 500)  # 7b's warmup + samples, cut from config 2's 500 + 1000
+PT_CUT = (100, 200)  # 7e's warmup + samples, cut from 200 + 400 (PERF.md, section 7)
+# 10d's warmup + samples, cut from 100 + 100 (the example's own defaults are
+# 300 + 400) to keep the script within 900 s (PERF.md, section 7)
+MULTIMODAL_CUT = (50, 50)
 ROUTE_N_POINTS = 60  # config 4 at 60 points: N = 62 > N_MAX, the route on the card
 ROUTE_C = 256
 # phase 8: the free-nu Matern's NUTS, the reference test's protocol (chains,
@@ -266,9 +287,14 @@ GRID_C = 64  # 8c's thetas for the 2-D grid (N = 156)
 # phase 9: (chains, warmup, samples) of each sharded run, and the largest
 # draw difference allowed from the unsharded run (0 expected: a chain's
 # density and gradient do not depend on how many chains share the call)
-MESH_RUNS = {"9a": (1024, 75, 150), "9b": (2048, 75, 150), "9c": (1024, 25, 25)}
+MESH_RUNS = {"9a": (1024, 75, 150), "9b": (2048, 75, 150), "9c": (1024, 25, 25),
+             "9e": (1024, 25, 25)}
 MESH_TOL = 1e-10
 MESH_WORKER_TIMEOUT = 300
+# 9d: one density call on WIDTH_C chains against the same chains in blocks,
+# a call each; every chain's value and gradient must be the same bits
+WIDTH_C = 1024
+WIDTH_SPLITS = ((512, 512), (1, 1023), (256, 256, 256, 256))
 # phase 10
 EXAMPLE_SUBPROCESS_TIMEOUT = 300
 MEAN_GATE_STDS = 0.5  # 10b: each SMC mean within this many posterior stds of the golden
@@ -534,9 +560,10 @@ def kernel_times(tag, model, data, thetas, card, plain=True):
     return t_call, t_dev, t_p, b_ms, b_by
 
 
-def variant_problems(dev):
+def variant_problems(dev, dtype=None):
     """The se_noise and warped_se_deriv models of the reference's
-    test_evidence_pallas.py::_model_variants, data from a numpy seed."""
+    test_evidence_pallas.py::_model_variants, data from a numpy seed
+    (float64 unless ``dtype``)."""
     import torch
 
     from gptools_tpu_torch.models.dataset import DatasetBuilder
@@ -546,20 +573,21 @@ def variant_problems(dev):
     )
 
     rng = np.random.default_rng(SEED)
+    dtype = dtype or torch.float64
 
     def data(lo, hi):
         b = DatasetBuilder(1)
         X = np.sort(rng.uniform(lo, hi, 7))
         b.add(X, np.sin(X), err_y=0.1)
         b.add(np.array([lo, hi]), np.zeros(2), err_y=0.05, n=1)
-        return b.build(torch.float64, dev)
+        return b.build(dtype, dev)
 
     def data48():  # N_MAX = 48 points: 46 values and 2 end slopes
         b = DatasetBuilder(1)
         X = np.sort(rng.uniform(0.0, 1.2, 46))
         b.add(X, np.sin(X), err_y=0.1)
         b.add(np.array([0.0, 1.2]), np.zeros(2), err_y=0.05, n=1)
-        return b.build(torch.float64, dev)
+        return b.build(dtype, dev)
 
     return [
         ("se_noise", GPModel(SquaredExponentialKernel(),
@@ -1153,12 +1181,15 @@ def inference_phase(dev, card):
     def gen():
         return torch.Generator(device=dev).manual_seed(SEED)
 
-    # 7b: config 2's own protocol, uncut (8 chains, 500 + 1000)
+    # 7b: config 2's NUTS, 8 chains, cut from its protocol's 500 + 1000 to
+    # NUTS_CUT for the script's time
     p2 = configs.config2_se_deriv_nuts(dtype=torch.float64, device=dev)
-    kw = p2.sampler_kwargs
-    res, wall, n = counted("7b config2 run_sampler nuts (8 chains, 500 + 1000, f64)", "se",
-                           lambda: run_sampler(p2.model, p2.data, gen(), sampler="nuts", **kw),
-                           card)
+    warm, samp = NUTS_CUT
+    kw = dict(p2.sampler_kwargs, num_warmup=warm, num_samples=samp)
+    res, wall, n = counted(
+        f"7b config2 run_sampler nuts (8 chains, {warm} + {samp}: cut from the protocol's "
+        f"500 + 1000, f64)", "se",
+        lambda: run_sampler(p2.model, p2.data, gen(), sampler="nuts", **kw), card)
     per_transition("7b", res, n, kw["num_warmup"] + kw["num_samples"])
     sampler_gates("7b config2 nuts", 2, res, wall, card)
     out["7b"] = ("se", n)
@@ -1191,12 +1222,14 @@ def inference_phase(dev, card):
     out["7d"] = ("gibbs_tanh", n)
 
     # 7e: config 2 through replica exchange, 4 rungs x 16 chains
+    warm, samp = PT_CUT
     res, wall, n = counted(
-        "7e config2 run_sampler pt (4 temperatures x 16 chains, 200 + 400, num_steps 16, f64)",
+        f"7e config2 run_sampler pt (4 temperatures x 16 chains, {warm} + {samp}: cut from "
+        f"200 + 400, num_steps 16, f64)",
         "se", lambda: run_sampler(p2.model, p2.data, gen(), sampler="pt", num_temps=4,
-                                  num_chains=16, num_warmup=200, num_samples=400,
+                                  num_chains=16, num_warmup=warm, num_samples=samp,
                                   num_steps=16), card)
-    per_transition("7e", res, n, 600)
+    per_transition("7e", res, n, warm + samp)
     print(f"phase7 7e: divergences per rung "
           f"{res.diagnostics['divergences_by_rung'].cpu().numpy().tolist()}; swap acceptance "
           f"per rung pair "
@@ -1394,6 +1427,27 @@ def route_graph_vs_eager(tag, model, data, th, card):
     return t_graph
 
 
+def rq_se_kernel():
+    """8b's kernel: an RQ + SE sum with log-normal and gamma priors."""
+    from gptools_tpu_torch.ops.kernels import RationalQuadraticKernel, SquaredExponentialKernel
+    from gptools_tpu_torch.utils.priors import GammaJointPrior, LogNormalJointPrior
+
+    rq = RationalQuadraticKernel(hyperprior=LogNormalJointPrior([0.0], [0.75])
+                                 * GammaJointPrior([2.0], [1.0])
+                                 * LogNormalJointPrior([-0.5], [0.75]))
+    se = SquaredExponentialKernel(hyperprior=LogNormalJointPrior([-1.0], [0.75])
+                                  * LogNormalJointPrior([0.0], [0.75]))
+    return rq + se
+
+
+def rq_se_problem(dev, dtype):
+    """`rq_se_kernel` on config 1's data: the per-chain route."""
+    from gptools_tpu_torch import configs
+    from gptools_tpu_torch.models.gp import GPModel
+
+    return GPModel(rq_se_kernel()), configs.config1_se_map(dtype=dtype, device=dev).data
+
+
 def zoo_map_phase(dev, card):
     """8b: the kernel algebra through MAP: an RQ + SE sum on config 1's
     data through `GaussianProcess.optimize_hyperparameters` on the card
@@ -1405,21 +1459,11 @@ def zoo_map_phase(dev, card):
     from gptools_tpu_torch import configs
     from gptools_tpu_torch.infer import map_fit, model_logp
     from gptools_tpu_torch.models.gp import GaussianProcess
-    from gptools_tpu_torch.ops.kernels import RationalQuadraticKernel, SquaredExponentialKernel
-    from gptools_tpu_torch.utils.priors import GammaJointPrior, LogNormalJointPrior
-
-    def kernel():
-        rq = RationalQuadraticKernel(hyperprior=LogNormalJointPrior([0.0], [0.75])
-                                     * GammaJointPrior([2.0], [1.0])
-                                     * LogNormalJointPrior([-0.5], [0.75]))
-        se = SquaredExponentialKernel(hyperprior=LogNormalJointPrior([-1.0], [0.75])
-                                      * LogNormalJointPrior([0.0], [0.75]))
-        return rq + se
 
     prob = configs.config1_se_map(dtype=torch.float64, device=dev)
     gps = {}
     for where in (dev, "cpu"):
-        gp = GaussianProcess(kernel(), device=where)
+        gp = GaussianProcess(rq_se_kernel(), device=where)
         gp.add_data(prob.data.Xf[:, 0].cpu().numpy(), prob.data.y.cpu().numpy(),
                     err_y=prob.data.err_y.cpu().numpy())
         gps[str(where)] = gp
@@ -1658,6 +1702,97 @@ def max_diff(a, b, tag):
     return float((a.to(b.device) - b).abs().max())
 
 
+def width_models(dev, dtype):
+    """9d's models and the path each density takes: config 3 (the evidence
+    kernel with aux mu and w), warped_se_deriv (w and wp), se_noise (nd),
+    config 5 (the chains-minor route), config 2 (the kernel with no aux
+    channel: the control) and RQ + SE on config 1's data (the per-chain
+    route)."""
+    from gptools_tpu_torch import configs
+
+    variants = {tag: (m, d) for tag, m, d in variant_problems(dev, dtype)}
+    out = []
+    for tag in ("config3", "warped_se_deriv", "se_noise", "config5", "config2"):
+        if tag.startswith("config"):
+            prob = configs.ALL_CONFIGS[int(tag[-1])](dtype=dtype, device=dev)
+            model, data = prob.model, prob.data
+        else:
+            model, data = variants[tag]
+        out.append((tag, model, data, "chains_minor" if tag == "config5" else "kernel"))
+    model, data = rq_se_problem(dev, dtype)
+    out.append(("rq_se", model, data, "per_chain"))
+    return out
+
+
+def width_diffs(model, data, u, splits):
+    """``log_posterior_u_batch``'s value and gradient on all chains u (C, P)
+    in one call against the same chains in blocks, a call each: per split,
+    (largest value difference, largest gradient difference, both bitwise
+    equal)."""
+    import torch
+
+    def vg(x):
+        x = x.clone().requires_grad_(True)
+        v = model.log_posterior_u_batch(x, data)
+        (g,) = torch.autograd.grad(v.sum(), x)
+        return v.detach(), g
+
+    def diff(a, b):
+        return float(torch.where(a == b, 0.0, a - b).abs().max())
+
+    v, g = vg(u)
+    out = {}
+    for split in splits:
+        parts = [vg(b) for b in u.split(list(split))]
+        vb, gb = torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+        out[split] = (diff(vb, v), diff(gb, g), torch.equal(vb, v) and torch.equal(gb, g))
+    return out
+
+
+def width_phase(dev, card):
+    """9d: for each model of `width_models`, in float64 and float32, the
+    value and gradient of ``log_posterior_u_batch`` at `WIDTH_C` chains
+    (u from a numpy seed) against the same chains in the blocks of each
+    of `WIDTH_SPLITS`; each must be the same bits, and the density must
+    take its path (the kernel: launches > 0, no plain or route call; the
+    route: route calls > 0, no launch). Returns the kernel's launches by
+    kind."""
+    import torch
+
+    from gptools_tpu_torch.ops import evidence_cuda as ec
+
+    launches, bad = {}, []
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for tag, model, data, path in width_models(dev, dtype):
+            rng = np.random.default_rng(SEED)
+            u = torch.as_tensor(0.4 * rng.standard_normal((WIDTH_C, model.num_free_params)),
+                                dtype=dtype, device=dev)
+            torch.cuda.synchronize()
+            ec.reset_counts()
+            diffs = width_diffs(model, data, u, WIDTH_SPLITS)
+            torch.cuda.synchronize()
+            n, plain = dict(ec.LAUNCHES), sum(ec.PLAIN_CALLS.values())
+            routes = dict(ec.ROUTE_CALLS)
+            for split, (dv, dg, same) in diffs.items():
+                print(f"phase9 9d {tag} {dname} C={WIDTH_C} against blocks "
+                      f"{'+'.join(map(str, split))}: largest value difference {dv:.3e}, "
+                      f"gradient {dg:.3e} ({card})")
+                if not same:
+                    bad.append(f"{tag} {dname} blocks {split}: value {dv}, gradient {dg}")
+            print(f"phase9 9d {tag} {dname}: evidence kernel launches {n}, plain-version "
+                  f"calls {plain}, route calls {routes}")
+            took = sum(n.values())
+            if not ((took > 0 and not any(routes.values())) if path == "kernel" else
+                    (routes[path] > 0 and took == 0)) or plain:
+                fail(f"phase9 9d {tag} {dname}: launches {n}, plain {plain}, routes {routes}")
+            for k, c in n.items():
+                launches[k] = launches.get(k, 0) + c
+    if bad:
+        fail("phase9 9d: a chain's bits depend on its batch: " + "; ".join(bad))
+    return launches
+
+
 def mesh_phase(dev, card):
     """Phase 9: the chains sharded over a mesh (`parallel.mesh`), float64,
     each sharded run against the unsharded run from the same seed (draws
@@ -1669,10 +1804,12 @@ def mesh_phase(dev, card):
     config 4 at 2048 chains on two ranks sharing the card (gloo,
     `scripts/torch_mp_worker.py`), each rank's launches at C = 1024 (its
     half) and never at 2048, and config 5's route at 9c's chains, half a
-    rank, against one unsharded call. Returns the kernel's launches of the
-    sharded runs (9a's two and both 9b ranks')."""
+    rank, against one unsharded call; (9d) `width_phase`; (9e) config 3
+    (the kernel with aux mu and w) at 1024 chains, SMC + 25 + 25, on two
+    ranks sharing the card, each rank's launches at C = 512, against one
+    process's unsharded run. Returns the kernel's launches by kind (9a's
+    two sharded runs, both ranks of 9b and of 9e, and 9d's)."""
     import importlib.util
-    import socket
     import tempfile
 
     import torch
@@ -1688,7 +1825,7 @@ def mesh_phase(dev, card):
     # 9a and 9c at world size 1 on NCCL, each run four times in the order
     # unsharded, sharded, sharded, unsharded, so that neither side inherits
     # the other's warm caches alone; every draw against the first run's
-    total = 0
+    launches = {"gibbs_tanh": 0, "se": 0, "matern52": 0}
     for part, config in (("9a", 4), ("9c", 5)):
         chains, warm, samp = MESH_RUNS[part]
         tag = (f"{part} config{config} smc_then_chees ({chains} chains, {warm} + {samp}, "
@@ -1708,7 +1845,7 @@ def mesh_phase(dev, card):
             if not (d <= MESH_TOL and ok and plain == 0 and coll["density"] > 0):
                 fail(f"phase9 {part}: difference {d}, launches {n}, plain {plain}, routes "
                      f"{routes}, collectives {coll}")
-            total += n
+            launches["gibbs_tanh"] += n
     dist.destroy_process_group()
 
     # 9b: config 4 at 2048 chains on two ranks sharing the card (gloo)
@@ -1726,56 +1863,97 @@ def mesh_phase(dev, card):
     route_ll, route_grad, _ = worker.route_check(
         configs.ALL_CONFIGS[5](dtype=torch.float64, device=dev),
         torch.Generator(device=dev).manual_seed(SEED + 3), route_c)
+    with tempfile.TemporaryDirectory() as out:
+        wall, ranks = two_ranks("9b", [
+            "--config", "4", "--chains", str(chains), "--particles", "1024", "--warmup",
+            str(warm), "--samples", str(samp), "--route-chains", str(route_c)], dev, out)
+    for r, (rep, got) in enumerate(ranks):
+        d = max_diff(got["thetas"], ref.thetas, "9b")
+        d5 = max(max_diff(got["route_ll"], route_ll, "9b route"),
+                 max_diff(got["route_grad"], route_grad, "9b route"))
+        print(f"phase9 9b rank {r}: pipeline {rep['pipeline_s']:.3f} s; evidence kernel "
+              f"launches {rep['launches']} at C {rep['kernel_chains']}, plain-version "
+              f"calls {rep['plain']}, route calls {rep['route']}, collectives "
+              f"{rep['collectives']}; largest draw difference {d:.3e}; config 5's route "
+              f"at {route_c // 2} thetas a rank ({rep['route_check_calls']} call) against "
+              f"{route_c} in one call: largest ll and gradient difference {d5:.3e} ({card})")
+        if not (d <= MESH_TOL and rep["launches"] > 0 and rep["plain"] == 0
+                and rep["route"] == 0 and max(rep["kernel_chains"]) == chains // 2
+                and chains // 2 in rep["kernel_chains"] and d5 <= MESH_TOL
+                and rep["route_check_calls"] == 1):
+            fail(f"phase9 9b rank {r}: {rep}, difference {d}, route difference {d5}")
+        launches["gibbs_tanh"] += rep["launches"]
+    print(f"phase9 9b: two ranks {wall:.3f} s from start to exit (processes, imports and "
+          f"the library's load included); unsharded in this process {wall0:.3f} s")
+
+    # 9d: each chain's bits in every block of a batch, in this process
+    for k, n in width_phase(dev, card).items():
+        launches[k] += n
+
+    # 9e: config 3 (the kernel with aux mu and w) on two ranks sharing the card
+    chains, warm, samp = MESH_RUNS["9e"]
+    tag = f"9e config3 smc_then_chees ({chains} chains, {warm} + {samp}, f64)"
+    ref, wall0, *_ = mesh_run(tag + " unsharded, one process", 3, chains, warm, samp, dev,
+                              None)
+    with tempfile.TemporaryDirectory() as out:
+        wall, ranks = two_ranks("9e", [
+            "--config", "3", "--chains", str(chains), "--particles", "1024", "--warmup",
+            str(warm), "--samples", str(samp)], dev, out)
+    for r, (rep, got) in enumerate(ranks):
+        d = max_diff(got["thetas"], ref.thetas, "9e")
+        print(f"phase9 9e rank {r}: pipeline {rep['pipeline_s']:.3f} s; evidence kernel "
+              f"launches {rep['launches']} at C {rep['kernel_chains']}, plain-version "
+              f"calls {rep['plain']}, route calls {rep['route']}, collectives "
+              f"{rep['collectives']}; largest draw difference {d:.3e} ({card})")
+        if not (d <= MESH_TOL and rep["launches"] > 0 and rep["plain"] == 0
+                and rep["route"] == 0 and rep["kernel_chains"] == [chains // 2]):
+            fail(f"phase9 9e rank {r}: {rep}, difference {d}")
+        launches["matern52"] += rep["launches"]
+    print(f"phase9 9e: two ranks {wall:.3f} s from start to exit; unsharded in this "
+          f"process {wall0:.3f} s")
+    print(f"phase9 walls: {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+def two_ranks(tag, args, dev, out):
+    """Two ranks of `scripts/torch_mp_worker.py` sharing the card (gloo on
+    127.0.0.1), seed `SEED`, each with ``args`` and its results in
+    ``out``: (wall seconds from start to exit, [(report, saved tensors)] a
+    rank)."""
+    import socket
+
+    import torch
+
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = dict(os.environ)
     for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
         env.pop(k, None)
-    with tempfile.TemporaryDirectory() as out:
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.join(ROOT, "scripts", "torch_mp_worker.py"), "--rank",
-             str(r), "--world", "2", "--port", str(port), "--device", dev.type,
-             "--config", "4", "--chains", str(chains), "--particles", "1024",
-             "--warmup", str(warm), "--samples", str(samp), "--seed", str(SEED), "--out", out,
-             "--route-chains", str(MESH_RUNS["9c"][0])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-            for r in range(2)]
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=MESH_WORKER_TIMEOUT)[0])
-        except subprocess.TimeoutExpired:
-            for p in procs:
-                p.kill()
-                p.communicate()
-            fail("phase9 9b: the two ranks timed out")
-        wall = time.perf_counter() - t0
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            if p.returncode != 0 or "MESH_WORKER " not in log:
-                fail(f"phase9 9b: rank {r} exited {p.returncode}:\n{log[-4000:]}")
-            rep = json.loads(log.split("MESH_WORKER ", 1)[1].splitlines()[0])
-            got = torch.load(os.path.join(out, f"rank{r}.pt"))
-            d = max_diff(got["thetas"], ref.thetas, "9b")
-            d5 = max(max_diff(got["route_ll"], route_ll, "9b route"),
-                     max_diff(got["route_grad"], route_grad, "9b route"))
-            print(f"phase9 9b rank {r}: pipeline {rep['pipeline_s']:.3f} s; evidence kernel "
-                  f"launches {rep['launches']} at C {rep['kernel_chains']}, plain-version "
-                  f"calls {rep['plain']}, route calls {rep['route']}, collectives "
-                  f"{rep['collectives']}; largest draw difference {d:.3e}; config 5's route "
-                  f"at {route_c // 2} thetas a rank ({rep['route_check_calls']} call) against "
-                  f"{route_c} in one call: largest ll and gradient difference {d5:.3e} ({card})")
-            if not (d <= MESH_TOL and rep["launches"] > 0 and rep["plain"] == 0
-                    and rep["route"] == 0 and max(rep["kernel_chains"]) == chains // 2
-                    and chains // 2 in rep["kernel_chains"] and d5 <= MESH_TOL
-                    and rep["route_check_calls"] == 1):
-                fail(f"phase9 9b rank {r}: {rep}, difference {d}, route difference {d5}")
-            total += rep["launches"]
-    print(f"phase9 9b: two ranks {wall:.3f} s from start to exit (processes, imports and "
-          f"the library's load included); unsharded in this process {wall0:.3f} s")
-    print(f"phase9 walls: {time.perf_counter() - t_start:.1f} s")
-    return total
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "scripts", "torch_mp_worker.py"), "--rank",
+         str(r), "--world", "2", "--port", str(port), "--device", dev.type, "--seed",
+         str(SEED), "--out", out, *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MESH_WORKER_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        fail(f"phase9 {tag}: the two ranks timed out")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0 or "MESH_WORKER " not in log:
+            fail(f"phase9 {tag}: rank {r} exited {p.returncode}:\n{log[-4000:]}")
+        ranks.append((json.loads(log.split("MESH_WORKER ", 1)[1].splitlines()[0]),
+                      torch.load(os.path.join(out, f"rank{r}.pt"))))
+    return wall, ranks
 
 
 def example_run(tag, kind, fn, card):
@@ -1872,10 +2050,11 @@ def examples_phase(dev, card):
     proc = subprocess.Popen([sys.executable, "-m", "gptools_tpu_torch.examples.run_config", "1"],
                             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        # 10d: multimodal_pt, NUTS / PT / SMC+ChEES at 16 chains, 100 + 100
+        # 10d: multimodal_pt, NUTS / PT / SMC+ChEES at 16 chains
+        warm, samp = (str(v) for v in MULTIMODAL_CUT)
         res, text, out["10d"] = example_run(
-            "10d multimodal_pt --warmup 100 --samples 100 (10e beside it)", "gibbs_tanh",
-            lambda: multimodal_pt.main(["--warmup", "100", "--samples", "100"]), card)
+            f"10d multimodal_pt --warmup {warm} --samples {samp} (10e beside it)", "gibbs_tanh",
+            lambda: multimodal_pt.main(["--warmup", warm, "--samples", samp]), card)
         finite = all(bool(torch.isfinite(r.thetas).all()) for r in res.values())
         means = re.findall(r"mean\s+(\S+)\s+sd\s+(\S+)\s+R-hat (\S+)", text)
         finite = finite and len(means) == 15 and all(np.isfinite(float(v)) for m in means
@@ -2171,7 +2350,7 @@ def main():
     # and at 12288 chains the run's own standard error is small enough that
     # the shift exceeds 4 of the golden's standard errors. The goldens are
     # float64 posteriors, so their rule is held in float64. Config 5 (1024
-    # chains, 100 + 300, the reference's protocol uncut) runs here only; its
+    # chains, 100 + 100 of the reference's 100 + 300) runs here only; its
     # evidence takes the route (T present), as in the reference.
     draws = {}
     for config in (4, 2, 3, 5):
@@ -2197,8 +2376,10 @@ def main():
     for run, (k, n) in inference.items():
         table[k]["launches"] += n
         table[k]["launches_by_path"][run] = n
-    table["gibbs_tanh"]["launches"] += mesh_launches
-    table["gibbs_tanh"]["launches_by_path"]["9"] = mesh_launches
+    for k, n in mesh_launches.items():
+        if n:
+            table[k]["launches"] += n
+            table[k]["launches_by_path"]["9"] = n
     for run, by_kind in example_launches.items():
         for k, n in by_kind.items():
             if n:

@@ -111,7 +111,7 @@ class WelfordState(NamedTuple):
     m2: torch.Tensor
 
 
-def welford_init(dim: int, dtype=torch.float64, device=None, lead: tuple = ()) -> WelfordState:
+def welford_init(dim: int, dtype=torch.float32, device=None, lead: tuple = ()) -> WelfordState:
     return WelfordState(
         count=torch.zeros(lead, dtype=dtype, device=device),
         mean=torch.zeros(lead + (dim,), dtype=dtype, device=device),

@@ -90,7 +90,7 @@ def tempered_logp_and_grad(log_like_fn: Callable, log_prior_fn: Callable, beta):
     return hmc.value_and_grad(lambda q: f(q, beta))
 
 
-def geometric_ladder(num_temps: int, beta_min: float = 0.1, dtype=torch.float64,
+def geometric_ladder(num_temps: int, beta_min: float = 0.1, dtype=torch.float32,
                      device=None) -> torch.Tensor:
     """Geometric inverse-temperature ladder ``beta_0 = 1 > ... >
     beta_{T-1} = beta_min``."""

@@ -126,6 +126,29 @@ class _EvidencePlan(NamedTuple):
     noise_mask: Optional[torch.Tensor]  # (N, 1) rows the noise applies to
 
 
+# On the card the routes' batched library calls (the Cholesky factor and
+# solves, the ``T K T^T`` product, the index gathers' backward) choose
+# their algorithms by the batch's size, and for a few chains other ones
+# than for many: a chain's bits would depend on its batch. Measured on an
+# H100 without the padding (PERF.md, section 6): config 5's route at 1, 2,
+# 3 and 8 chains gave other bits than at 1024, at 64, 300 and 512-1023 the
+# same. So on the card the routes compute at least this many chains
+# (`_pad_rows`; `chip_smoke.py` phase 9d checks it); the CPU's calls do not
+# depend on the batch's size (tests/test_torch_width.py).
+_ROUTE_MIN_CHAINS = 64
+
+
+def _pad_rows(fn, thetas: torch.Tensor, width: int):
+    """``fn`` of thetas (C, P) -> (C,) computed on at least ``width`` rows:
+    fewer are padded with copies of the first (detached), whose results are
+    dropped."""
+    C = thetas.shape[0]
+    if C >= width:
+        return fn(thetas)
+    pad = thetas[:1].detach().expand(width - C, thetas.shape[1])
+    return fn(torch.cat([thetas, pad]))[:C]
+
+
 def _chunked_vag(fn, chunk: int, thetas: torch.Tensor):
     """``fn`` over thetas (C, P) in chunks of rows: (values (C,), their
     gradients (C, P)), each chunk's value and gradient taken together."""
@@ -412,7 +435,8 @@ class GPModel:
             )
         if plan.noise_mask is not None:
             sn = thetaT[self._offsets[1]]
-            aux["nd"] = (sn * sn)[None, :] * plan.noise_mask.to(thetaT.dtype)
+            aux["nd"] = fused._ExpandRow.apply(sn * sn, plan.ev.n) * plan.noise_mask.to(
+                thetaT.dtype)
         if plan.input_warp is not None:
             w, wp = fused.warp_coords(
                 plan.input_warp, plan.ev.X.to(thetaT.dtype),
@@ -450,7 +474,11 @@ class GPModel:
         """The reference's chains-minor XLA path (``gp.py:556-597``): the
         fused (Q, Q, C) build, the noise kernel by the generic assembly, the
         mean, ``T K T^T`` and ``T mu``, err_y^2 on the diagonal, the
-        ``solve_dtype`` cast and `evidence.loglik_b`."""
+        ``solve_dtype`` cast and `evidence.loglik_b`. On the card fewer than
+        `_ROUTE_MIN_CHAINS` chains are padded to that many (`_pad_rows`)."""
+        if thetas.is_cuda and thetas.shape[0] < _ROUTE_MIN_CHAINS:
+            return _pad_rows(lambda t: self._chains_minor_batch(t, data), thetas,
+                             _ROUTE_MIN_CHAINS)
         evidence_cuda.ROUTE_CALLS["chains_minor"] += 1
         thetaT = thetas.T
         Xf = data.Xf.to(thetas.dtype)
@@ -497,9 +525,12 @@ class GPModel:
         cost = self.kernel.entry_cost + (
             self.noise_kernel.entry_cost if self.noise_kernel is not None else 0)
         chunk = max(1, _PER_CHAIN_ENTRIES // (cost * data.num_latent**2))
+        # on the card every chunk has at least min(chunk, _ROUTE_MIN_CHAINS)
+        # rows: where chunks are smaller than that, all have the same shape
+        width = min(chunk, _ROUTE_MIN_CHAINS) if thetas.is_cuda else 1
 
         def fn(t):
-            return self.log_marginal(t, data)
+            return _pad_rows(lambda x: self.log_marginal(x, data), t, width)
 
         if torch.is_grad_enabled() and thetas.requires_grad:
             if thetas.is_cuda and _PER_CHAIN_GRAPHS:

@@ -9,7 +9,11 @@ reference. Where the reference evaluates one parameter vector per call
 under ``vmap``, here ``_scalar(X (N, D), thetaT (P, C)) -> (N, C)`` takes
 the whole chain batch, and `mean_vector` takes each derivative order by
 the forward-mode towers of `ops.derivs` in x (each row of the output
-depends on its own row of X only).
+depends on its own row of X only). `mean_vector` hands `_scalar` each
+chain's parameters already expanded to the points, (P, N, C), so that the
+mean is elementwise in (point, chain) and the sum of a chain's cotangents
+over the points has an order fixed for any number of chains
+(`ops.fused._ExpandRow`; the rule is in `parallel.mesh`).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from gptools_tpu_torch.ops import derivs
 from gptools_tpu_torch.ops.derivs import MultiIndex
+from gptools_tpu_torch.ops.fused import _expand_rows
 from gptools_tpu_torch.utils.priors import JointPrior, UniformJointPrior
 
 __all__ = [
@@ -83,7 +88,10 @@ class MeanFunction:
         return len(self.param_names)
 
     def _scalar(self, X: torch.Tensor, thetaT: torch.Tensor) -> torch.Tensor:
-        """Mean values at points X (N, D) for chains thetaT (P, C) -> (N, C)."""
+        """Mean values at points X (N, D) for chains thetaT (P, C) or
+        (P, N, C) -> (N, C): each row ``thetaT[p]`` broadcasts against a
+        column ``X[:, d:d+1]``, with no sum over the points or the
+        chains."""
         raise NotImplementedError
 
     def scalar(self, x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
@@ -148,7 +156,7 @@ class ArbitraryMeanFunction(MeanFunction):
         super().__init__(num_dim, param_names, **kw)
 
     def _scalar(self, X, thetaT):
-        return self.fn(X[:, None, :], thetaT.T[None, :, :])
+        return self.fn(X[:, None, :], thetaT.movedim(0, -1))
 
 
 class ConstantMeanFunction(MeanFunction):
@@ -158,7 +166,7 @@ class ConstantMeanFunction(MeanFunction):
         super().__init__(num_dim, ("c",), **kw)
 
     def _scalar(self, X, thetaT):
-        return thetaT[0][None, :].expand(X.shape[0], thetaT.shape[1])
+        return thetaT[0].expand(X.shape[0], thetaT.shape[-1])
 
 
 class LinearMeanFunction(MeanFunction):
@@ -170,7 +178,10 @@ class LinearMeanFunction(MeanFunction):
 
     def _scalar(self, X, thetaT):
         D = self.num_dim
-        return X @ thetaT[:D] + thetaT[D][None, :]
+        out = X[:, :1] * thetaT[0]
+        for d in range(1, D):
+            out = out + X[:, d : d + 1] * thetaT[d]
+        return out + thetaT[D]
 
 
 class MtanhMeanFunction1d(MeanFunction):
@@ -186,7 +197,7 @@ class MtanhMeanFunction1d(MeanFunction):
         super().__init__(1, ("x0", "delta", "alpha", "ped", "off"), **kw)
 
     def _scalar(self, X, thetaT):
-        x0, delta, alpha, ped, off = (thetaT[p][None, :] for p in range(5))
+        x0, delta, alpha, ped, off = (thetaT[p] for p in range(5))
         z = (x0 - X[:, :1]) / (2.0 * delta)
         mt = torch.tanh(z) + alpha * z * torch.sigmoid(2.0 * z)
         return 0.5 * (ped - off) * (mt + 1.0) + off
@@ -195,7 +206,10 @@ class MtanhMeanFunction1d(MeanFunction):
 def mean_vector(mean_fn: MeanFunction, thetaT, X, nid, multi_indices) -> torch.Tensor:
     """The mean at each observation's derivative order: thetaT (P, C),
     X (N, D), nid (N,) ids into ``multi_indices`` -> (N, C), at any
-    derivative multi-index."""
+    derivative multi-index. Each chain's parameters are expanded to the
+    points first (`_expand_rows`)."""
+    if thetaT.shape[0]:
+        thetaT = torch.stack(_expand_rows(thetaT.unbind(0), X.shape[0]))  # (P, N, C)
 
     def scalar(x):
         return mean_fn._scalar(x, thetaT)

@@ -21,7 +21,7 @@ import torch
 
 from gptools_tpu_torch.models import mean as _mean
 from gptools_tpu_torch.models.dataset import MultiIndex
-from gptools_tpu_torch.ops import derivs
+from gptools_tpu_torch.ops import derivs, fused
 
 __all__ = ["cov_matrix", "delta_matrix", "mean_vector", "all_pairs"]
 
@@ -123,8 +123,20 @@ def delta_matrix(
             mask = base_mask & (nid1[:, None] == multi_indices.index(dk.n_match))
         else:
             mask = base_mask
-        out = out + torch.where(mask, val[..., None, None], 0.0)
+        out = out + torch.where(mask, _to_entries(val, out.shape[-2:]), 0.0)
     return out
+
+
+def _to_entries(val: torch.Tensor, shape) -> torch.Tensor:
+    """Per-theta values (...) broadcast to (..., N1, N2). Under autograd a
+    batch's values are expanded by `fused._ExpandRow`, so that each theta's
+    cotangent is summed over the entries in one order whatever the batch's
+    size."""
+    if val.ndim == 0 or not val.requires_grad:
+        return val[..., None, None]
+    n = shape[0] * shape[1]
+    rows = fused._ExpandRow.apply(val.reshape(-1), n)  # (N1 N2, B)
+    return rows.T.reshape(val.shape + tuple(shape))
 
 
 def mean_vector(

@@ -50,7 +50,9 @@ class CholState(NamedTuple):
 
 
 def _mean_diag(K: torch.Tensor) -> torch.Tensor:
-    return torch.diagonal(K, dim1=-2, dim2=-1).mean(-1)
+    # a row per matrix, each summed alone: over a strided diagonal the CPU
+    # would group the matrices by the batch's width and layout
+    return torch.diagonal(K, dim1=-2, dim2=-1).contiguous().mean(-1)
 
 
 def add_jitter(K: torch.Tensor, diag_factor: float = 1e2) -> torch.Tensor:

@@ -100,7 +100,9 @@ def matern52_blocks_d(d, theta):
     return _matern52_pairs(d, *_matern52_chain(theta))
 
 
-_BASE_BLOCKS_D = {"se": se_blocks_d, "matern52": matern52_blocks_d}
+# each base kind's (per-chain factors, pair function): the chains-minor
+# builders expand the factors to the pairs (`_ExpandRow`) in between
+_BASE_PAIRS = {"se": (_se_chain, _se_pairs), "matern52": (_matern52_chain, _matern52_pairs)}
 
 
 def _rows(theta):
@@ -268,7 +270,14 @@ class _ExpandRow(torch.autograd.Function):
     same for any width: (k, m) blocks, k ~ sqrt(n), each of the two sums a
     scan down the columns, which PyTorch runs one column a thread in order
     on the card and on the CPU. Expand a chain's factors after the
-    arithmetic that involves the chain alone, which then stays (C,)."""
+    arithmetic that involves the chain alone, which then stays (C,). Its
+    users: `_pairs_sym`, `gibbs_tanh_cov_fused_soa_sym`,
+    `coords_cov_soa_sym`, `warp_coords` (the BetaWarp rows),
+    `models.mean.mean_vector`, the ``nd`` channel of
+    `models.gp.GPModel._evidence_inputs` and `ops.assemble.delta_matrix`;
+    the contract's other sites (the kernel, `ops.evidence._mean_diag`,
+    `models.gp._pad_rows`) and the rule for new code are in
+    `parallel.mesh`'s docstring."""
 
     @staticmethod
     def forward(ctx, row, n: int):
@@ -368,6 +377,8 @@ def warp_coords(input_warp, X, theta_w, need_slope: bool, chains_minor: bool = T
         return w, (torch.full_like(w, scale) if need_slope else None)
     if type(input_warp) is BetaWarp:
         a, b = theta_w[0], theta_w[1]
+        if chains_minor:  # each chain's (a, b) to the points (`_ExpandRow`)
+            a, b = _expand_rows((a, b), X.shape[0])
         w = betainc_dd(a, b, Xcol)
         return w, (beta_warp_pdf(a, b, Xcol) if need_slope else None)
     raise ValueError(type(input_warp).__name__)
@@ -381,7 +392,8 @@ def coords_cov_soa_sym(base_kind, w, wp, ids, thetaT):
     dev = thetaT.device
     r = torch.as_tensor(rows, device=dev)
     c = torch.as_tensor(cols, device=dev)
-    k00, k10, k01, k11 = _BASE_BLOCKS_D[base_kind](w[r] - w[c], thetaT)
+    chain, pairs = _BASE_PAIRS[base_kind]
+    k00, k10, k01, k11 = pairs(w[r] - w[c], *_expand_rows(chain(thetaT), r.shape[0]))
     if wp is not None:
         k10 = k10 * wp[r]
         k01 = k01 * wp[c]
@@ -411,7 +423,8 @@ def warped_cov_fused(base_kind, input_warp, X, ids, theta):
         w, wp = warp_coords(input_warp, X, theta[:, pb:].T, True)  # (N, B)
         w, wp = w.T, wp.T
     wr, wc = w[..., :, None], w[..., None, :]
-    k00, k10, k01, k11 = _BASE_BLOCKS_D[base_kind](wr - wc, _rows(theta[..., :pb]))
+    chain, pairs = _BASE_PAIRS[base_kind]
+    k00, k10, k01, k11 = pairs(wr - wc, *chain(_rows(theta[..., :pb])))
     pr, pc = wp[..., :, None], wp[..., None, :]
     return assemble_blocks(
         (k00, k10 * pr, k01 * pc, k11 * (pr * pc)), ids[:, None], ids[None, :]

@@ -25,6 +25,40 @@ reference's axis names. The design:
   density's all-gather; every rank repeats the sampler's O(C P)
   arithmetic, small at P <= 6 beside the density.
 
+That last step holds only while each chain's log density and gradient
+are the same bits whatever the batch it is computed in: its width and
+the chain's place in it. The sites that hold it, on the CPU and on the
+card, in float64 and float32 (`tests/test_torch_width.py`;
+`chip_smoke.py` phase 9d):
+
+- the evidence kernel, one warp per chain (`ops.evidence_cuda`);
+- `ops.fused._ExpandRow` (through `_expand_rows`), which expands a
+  chain's factors to the pairs or points it meets and sums the
+  cotangents back in an order fixed by the row count: the symmetric
+  chains-minor builders (`_pairs_sym`, `gibbs_tanh_cov_fused_soa_sym`),
+  the warped builder `coords_cov_soa_sym` and the BetaWarp rows of
+  `warp_coords`, so also the kernel's plain version;
+- `models.mean.mean_vector`, which expands each mean parameter to the
+  points before the (elementwise) mean, and the noise channel of
+  `models.gp.GPModel._evidence_inputs`;
+- `ops.assemble.delta_matrix`, which expands a theta batch's noise
+  values to the matrix entries (the noise kernel of the routes);
+- `ops.evidence._mean_diag` (the relative jitter), which sums each
+  matrix's diagonal as a row of its own: over the strided diagonal of a
+  chains-minor batch the CPU grouped the matrices by the batch's width;
+- `models.gp._pad_rows`: on the card both routes
+  (`GPModel._chains_minor_batch`, the chunks of `_per_chain_batch`)
+  compute at least `_ROUTE_MIN_CHAINS` chains, since the batched
+  Cholesky, solves, index gathers' backward and ``T K T^T`` product take
+  other algorithms for a few matrices or columns than for many.
+
+The rule for new code on the density's path: a per-chain value (C,)
+that meets a per-point or per-pair axis is expanded by `_expand_rows`
+(after the arithmetic that involves the chain alone), never broadcast,
+since autograd's sum over a broadcast axis, and any reduction of the
+card's, splits its work by the tensor's shape; and on the card no
+library call sees fewer chains than `_ROUTE_MIN_CHAINS`.
+
 Public functions that take a mesh take and return the global batch, as
 the reference's global-view arrays do. `COLLECTIVE_CALLS` counts the
 collectives, by purpose.

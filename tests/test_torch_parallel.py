@@ -18,8 +18,9 @@ In process, at world size 1 (a group of one that `make_mesh` makes):
 - `pt_step_sharded` on a (1, 1) pod mesh: shapes, finite values,
   acceptance, as ``tests/test_parallel.py`` holds the reference's.
 
-Two ranks (`scripts/torch_mp_worker.py`, gloo over 127.0.0.1): config 4
-through ``smc_then_chees(mesh=...)`` (64 particles, 16 chains, 10 + 10),
+Two ranks (`scripts/torch_mp_worker.py`, gloo over 127.0.0.1): configs 4
+and 3 (each on its own pair of ranks) through ``smc_then_chees(mesh=...)``
+(64 particles, 16 chains, 10 + 10), and for config 4 also
 `sharded_smc` and one `training_step_sharded` step; on every rank each
 draw within 1e-10 of the single-process unsharded run from the same seed
 (0 expected: the density's rows do not depend on the batch's width);
@@ -214,24 +215,31 @@ def _free_port():
 def test_two_ranks_gloo_equal_unsharded(tmp_path, config4):
     """Config 4 on two gloo ranks against the single-process unsharded run:
     the pipeline's draws, SMC's particles and a training step's positions,
-    log densities and step size; config 5 through the route."""
-    port = _free_port()
+    log densities and step size; config 5 through the route; config 3 (the
+    evidence kernel with the aux channels mu and w) through the pipeline,
+    on two more ranks."""
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
         env.pop(k, None)
-    procs = [subprocess.Popen(
-        [sys.executable, WORKER, "--rank", str(r), "--world", "2", "--port", str(port),
-         "--device", "cpu", "--out", str(tmp_path), "--extra", "--route-chains", "16"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-        for r in range(2)]
-    outs = []
+    runs = {4: ["--extra", "--route-chains", "16"], 3: ["--config", "3"]}
+    procs = {}
+    for config, extra in runs.items():
+        port = _free_port()
+        procs[config] = [subprocess.Popen(
+            [sys.executable, WORKER, "--rank", str(r), "--world", "2", "--port", str(port),
+             "--device", "cpu", "--out", str(tmp_path / f"config{config}"), *extra],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+            for r in range(2)]
+    outs = {config: [] for config in runs}
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=120)[0])
+        for config, ps in procs.items():
+            for p in ps:
+                outs[config].append(p.communicate(timeout=120)[0])
     except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        pytest.fail("two-rank workers timed out:\n" + "\n".join(outs))
+        for ps in procs.values():
+            for p in ps:
+                p.kill()
+        pytest.fail("two-rank workers timed out:\n" + "\n".join(sum(outs.values(), [])))
 
     model, data = config4
     ref = smc_then_chees(model, data, _gen(7), num_chains=16, num_warmup=10, num_samples=10,
@@ -250,8 +258,20 @@ def test_two_ranks_gloo_equal_unsharded(tmp_path, config4):
     route_ll, route_grad, _ = worker.route_check(
         tconfigs.ALL_CONFIGS[5](dtype=F64, device="cpu"), _gen(10), 16)
 
+    prob3 = tconfigs.ALL_CONFIGS[3](dtype=F64, device="cpu")
+    ref3 = smc_then_chees(prob3.model, prob3.data, _gen(7), num_chains=16, num_warmup=10,
+                          num_samples=10, num_particles=64)
+
     worst = 0.0
-    for r, (p, out) in enumerate(zip(procs, outs)):
+    for r, (p, out) in enumerate(zip(procs[3], outs[3])):
+        assert p.returncode == 0, f"config 3 rank {r} failed:\n{out}"
+        report = json.loads(out.split("MESH_WORKER ", 1)[1].splitlines()[0])
+        assert report["kernel_chains"] == [8, 32], report
+        assert report["collectives"]["density"] > 0 and report["plain"] > 0
+        got = torch.load(tmp_path / "config3" / f"rank{r}.pt")
+        assert got["thetas"].shape == ref3.thetas.shape
+        worst = max(worst, float((got["thetas"] - ref3.thetas).abs().max()))
+    for r, (p, out) in enumerate(zip(procs[4], outs[4])):
         assert p.returncode == 0, f"rank {r} failed:\n{out}"
         report = json.loads(out.split("MESH_WORKER ", 1)[1].splitlines()[0])
         assert report["indivisible_raised"] and report["divergent_generators_raised"]
@@ -259,7 +279,7 @@ def test_two_ranks_gloo_equal_unsharded(tmp_path, config4):
         assert report["kernel_chains"] == [8, 32], report
         assert report["collectives"]["density"] > 0 and report["plain"] > 0
         assert report["route_check_calls"] == 1, report
-        got = torch.load(tmp_path / f"rank{r}.pt")
+        got = torch.load(tmp_path / "config4" / f"rank{r}.pt")
         # config 5's route on 8 thetas a rank: the unsharded call's bits
         assert torch.equal(got["route_ll"], route_ll)
         assert torch.equal(got["route_grad"], route_grad)

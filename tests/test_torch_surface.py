@@ -16,6 +16,12 @@ constructors (``__init__``). Each must exist in the port's module of the same pa
 A reference item the port lacks that is not in `NOT_PORTED` fails its
 module's case; so does a `NOT_PORTED` entry the port has (or that names no
 reference item), and an entry with an empty reason.
+
+Every keyword whose reference default is a literal (a number, string,
+boolean, None, or a tuple or list of them; ``jnp.X`` is read as
+``torch.X``) must have the same default in the port, unless `DEFAULT_DIFFS`
+names the keyword with its reason; an entry whose default agrees, or that
+names no such keyword, fails too.
 """
 
 import ast
@@ -24,6 +30,7 @@ import inspect
 import os
 
 import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF = os.path.join(REPO, "gptools_tpu")
@@ -116,6 +123,28 @@ NOT_PORTED = {
 }
 
 
+# intended differences of a literal default: {item: reason}
+_DRAW = ("the port's draws take the shape and the dtype from the caller, with the "
+         "``torch.Generator``; JAX's default float has no counterpart in torch")
+DEFAULT_DIFFS = {
+    "infer/smc.py::smc_round(log_like_batched)": "the port's round takes the batched "
+                                                 "likelihood only, as its first, "
+                                                 "required argument",
+    "models/dataset.py::DatasetBuilder.build(dtype)": "None is JAX's default float (the "
+                                                      "x64 flag); the port's build takes "
+                                                      "the dtype and the device from the "
+                                                      "caller",
+    "ops/fused.py::flagship_cov_soa(symmetric)": "None reads the reference's "
+                                                 "``SOA_SYMMETRIC`` switch (not ported); "
+                                                 "the port's default is that switch's "
+                                                 "value, the symmetric builders",
+    **{f"utils/priors.py::{c}.sample(shape)": _DRAW for c in (
+        "Exponential", "Gamma", "GammaJointPrior", "IndependentJointPrior", "JointPrior",
+        "LogNormal", "LogNormalJointPrior", "Normal", "NormalJointPrior",
+        "ProductJointPrior", "SortedUniformJointPrior", "Uniform", "UniformJointPrior")},
+}
+
+
 def _ref_modules():
     out = []
     for dirpath, _, files in os.walk(REF):
@@ -134,20 +163,62 @@ def _keywords(fn):
     return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs if x.arg not in ("self", "cls")]
 
 
+_NO_LITERAL = object()
+
+
+def _literal(node):
+    """The value of a literal default (``jnp.X`` as ``torch.X``), else
+    `_NO_LITERAL`."""
+    if (isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name)
+            and node.value.id == "jnp"):
+        return getattr(torch, node.attr, _NO_LITERAL)
+    try:
+        value = ast.literal_eval(node)
+    except ValueError:
+        return _NO_LITERAL
+    if isinstance(value, (dict, set)):
+        return _NO_LITERAL
+    return value
+
+
+def _defaults(fn):
+    """{keyword: default node} of a function's keywords that have one."""
+    a = fn.args
+    positional = a.posonlyargs + a.args
+    out = {x.arg: d for x, d in zip(positional[len(positional) - len(a.defaults):],
+                                    a.defaults)}
+    out.update({x.arg: d for x, d in zip(a.kwonlyargs, a.kw_defaults) if d is not None})
+    return out
+
+
 def reference_items(rel):
     """{qualified item: port lookup} for one reference module: each item is
     ``(kind, name, member, keyword)``."""
+    return _walk(rel)[0]
+
+
+def reference_defaults(rel):
+    """{qualified keyword item: its literal reference default} for one
+    reference module."""
+    return _walk(rel)[1]
+
+
+def _walk(rel):
     with open(os.path.join(REF, rel)) as f:
         tree = ast.parse(f.read())
-    items = {}
+    items, defaults = {}, {}
 
-    def add(kind, name, member=None, kw=None):
+    def add(kind, name, member=None, kw=None, fn=None):
         q = f"{rel}::{name}"
         if member:
             q += f".{member}"
         if kw:
             q += f"({kw})"
         items[q] = (kind, name, member, kw)
+        node = _defaults(fn).get(kw) if fn is not None else None
+        value = _NO_LITERAL if node is None else _literal(node)
+        if value is not _NO_LITERAL:
+            defaults[q] = value
 
     for node in tree.body:
         if isinstance(node, (ast.Assign, ast.AnnAssign)):
@@ -163,7 +234,7 @@ def reference_items(rel):
         elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and _public(node.name):
             add("name", node.name)
             for kw in _keywords(node):
-                add("keyword", node.name, kw=kw)
+                add("keyword", node.name, kw=kw, fn=node)
         elif isinstance(node, ast.ClassDef) and _public(node.name):
             add("name", node.name)
             for b in node.body:
@@ -172,7 +243,7 @@ def reference_items(rel):
                     add("field", node.name, b.target.id)  # a NamedTuple's or dataclass's
                 elif isinstance(b, ast.FunctionDef) and b.name == "__init__":
                     for kw in _keywords(b):
-                        add("keyword", node.name, b.name, kw)
+                        add("keyword", node.name, b.name, kw, fn=b)
                 elif isinstance(b, ast.FunctionDef) and (_public(b.name)
                                                          or b.name == "__call__"):
                     add("member", node.name, b.name)
@@ -180,8 +251,8 @@ def reference_items(rel):
                            for d in b.decorator_list):
                         continue
                     for kw in _keywords(b):
-                        add("keyword", node.name, b.name, kw)
-    return items
+                        add("keyword", node.name, b.name, kw, fn=b)
+    return items, defaults
 
 
 def _port_module(rel):
@@ -240,6 +311,50 @@ def gaps(rel):
     return missing
 
 
+def _same(ref, port):
+    """A port default equal to the reference's literal one: a dtype the same
+    object, a boolean a boolean, a number an equal number, a sequence the same
+    kind with equal entries, anything else equal."""
+    if isinstance(ref, torch.dtype) or isinstance(port, torch.dtype):
+        return ref is port
+    if isinstance(ref, bool) or isinstance(port, bool):
+        return type(ref) is type(port) and ref == port
+    if isinstance(ref, (tuple, list)):
+        return (type(ref) is type(port) and len(ref) == len(port)
+                and all(_same(r, p) for r, p in zip(ref, port)))
+    if isinstance(ref, (int, float)):
+        return isinstance(port, (int, float)) and ref == port
+    return type(ref) is type(port) and ref == port
+
+
+def default_diffs(rel):
+    """{item: (reference default, port default)} of the keywords of module
+    ``rel`` whose port default differs from the reference's literal one (a
+    keyword the port lacks is `gaps`'s)."""
+    try:
+        mod = importlib.import_module(_port_module(rel))
+    except ModuleNotFoundError:
+        return {}
+    items = reference_items(rel)
+    out = {}
+    for q, ref in reference_defaults(rel).items():
+        _, name, member, kw = items[q]
+        obj = getattr(mod, NAME_MAP.get(f"{rel}::{name}", name), None)
+        if obj is not None and member is not None:
+            obj = getattr(obj, member, None)
+        try:
+            params = inspect.signature(obj).parameters
+        except (TypeError, ValueError):
+            continue
+        param = params.get(KEYWORD_MAP.get(kw, kw))
+        if param is None:
+            continue
+        port = param.default
+        if port is inspect.Parameter.empty or not _same(ref, port):
+            out[q] = (ref, port)
+    return out
+
+
 MODULES = _ref_modules()
 
 
@@ -281,3 +396,26 @@ def test_surface_walk_sees_known_items():
     assert "infer/hmc.py::SampleResult.log_prob" in reference_items("infer/hmc.py")
     assert "infer/chees.py::sample(chunk)" in reference_items("infer/chees.py")
     assert sum(len(reference_items(r)) for r in MODULES) > 1000
+    # and the literal defaults (a walk that read none would pass every module)
+    defaults = reference_defaults("infer/pt.py")
+    assert defaults["infer/pt.py::geometric_ladder(dtype)"] is torch.float32
+    assert defaults["infer/pt.py::geometric_ladder(beta_min)"] == 0.1
+    assert sum(len(reference_defaults(r)) for r in MODULES) > 300
+
+
+@pytest.mark.parametrize("rel", MODULES)
+def test_module_defaults(rel):
+    """Every literal default of the reference module's functions, methods and
+    constructors is the port's too, or `DEFAULT_DIFFS` gives the reason it
+    is not; every `DEFAULT_DIFFS` entry of the module is such a difference."""
+    diffs = default_diffs(rel)
+    entries = {q for q in DEFAULT_DIFFS if q.startswith(rel + "::")}
+    assert not set(diffs) - entries, (
+        "defaults that differ from the reference's, in no DEFAULT_DIFFS entry: "
+        + "; ".join(f"{q}: {diffs[q][0]!r} in the reference, {diffs[q][1]!r} in the port"
+                    for q in sorted(set(diffs) - entries)))
+    assert not entries - set(diffs), (
+        f"stale DEFAULT_DIFFS entries (the defaults agree, or no literal default of a "
+        f"reference keyword): {sorted(entries - set(diffs))}")
+    for q in entries:
+        assert DEFAULT_DIFFS[q].strip(), f"{q}: no reason"
