@@ -25,6 +25,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from gptools_tpu_torch.utils import metrics as _metrics
+
 __all__ = [
     "SampleResult",
     "DualAveragingState",
@@ -194,7 +196,8 @@ def value_and_grad(logp: Callable) -> Callable:
         with torch.enable_grad():
             q = qs.detach().requires_grad_(True)
             lls = logp(q)
-            (g,) = torch.autograd.grad(lls.sum(), q)
+            with _metrics.span("density.backward"):
+                (g,) = torch.autograd.grad(lls.sum(), q)
         return lls.detach(), g
 
     return logp_and_grad
@@ -333,6 +336,7 @@ def run_window(
     return state[0], da, moments if collect_welford else welford, outs
 
 
+@_metrics.solve_entry
 @torch.no_grad()
 def sample(
     logp: Callable,
@@ -383,31 +387,33 @@ def sample(
     inv_mass = (torch.ones(P, dtype=dtype, device=dev) if inv_mass0 is None
                 else torch.as_tensor(inv_mass0, dtype=dtype, device=dev))
     da = da_init(torch.tensor(eps0, dtype=dtype, device=dev))
-    state = (u0, *logp_and_grad(u0))
 
-    div_warmup = torch.zeros((), dtype=torch.int64, device=dev)
-    syncs = 0
-    for phase, length in warmup_schedule(num_warmup):
-        collect = phase == "slow" and adapt_mass
-        welford = welford_init(P, dtype, dev) if collect else None
-        state, da, welford, div, n_sync, outs = _run_window(
-            step, state, generator, length, da, inv_mass, True, welford, target_accept,
-            keep=metrics is not None)
-        div_warmup = div_warmup + div
-        syncs += n_sync
-        if metrics is not None:
-            metrics.log_window(phase, length, outs)
-        if collect:
-            inv_mass = welford_variance(welford)
-            # restart dual averaging around the current step size (Stan)
-            da = da_init(torch.exp(da.log_eps_avg))
+    with _metrics.span("solve.warmup"):
+        state = (u0, *logp_and_grad(u0))
+        div_warmup = torch.zeros((), dtype=torch.int64, device=dev)
+        syncs = 0
+        for phase, length in warmup_schedule(num_warmup):
+            collect = phase == "slow" and adapt_mass
+            welford = welford_init(P, dtype, dev) if collect else None
+            state, da, welford, div, n_sync, outs = _run_window(
+                step, state, generator, length, da, inv_mass, True, welford, target_accept,
+                keep=metrics is not None)
+            div_warmup = div_warmup + div
+            syncs += n_sync
+            if metrics is not None:
+                metrics.log_window(phase, length, outs)
+            if collect:
+                inv_mass = welford_variance(welford)
+                # restart dual averaging around the current step size (Stan)
+                da = da_init(torch.exp(da.log_eps_avg))
 
-    # frozen-adaptation sampling phase
-    eps_final = torch.exp(da.log_eps_avg)
-    da = da._replace(log_eps=torch.log(eps_final))
-    _, _, _, divergences, n_sync, outs = _run_window(
-        step, state, generator, num_samples, da, inv_mass, False, None, target_accept,
-        keep=True)
+    with _metrics.span("solve.sampling"):
+        # frozen-adaptation sampling phase
+        eps_final = torch.exp(da.log_eps_avg)
+        da = da._replace(log_eps=torch.log(eps_final))
+        _, _, _, divergences, n_sync, outs = _run_window(
+            step, state, generator, num_samples, da, inv_mass, False, None, target_accept,
+            keep=True)
     if metrics is not None:
         metrics.log_window("sampling", num_samples, outs)
     diagnostics = {

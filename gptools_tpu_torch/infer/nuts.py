@@ -22,7 +22,9 @@ density call over all chains, and a chain that has finished (turned,
 diverged, or reached the depth) is frozen: its step is zero, so its row
 is evaluated at its own edge, and every carry takes its old value through
 `torch.where`. Deciding whether any chain is still active is a host sync:
-one per leaf and one per doubling, counted in ``stats["host_syncs"]``;
+one per leaf and one per doubling, counted at their sites in
+`utils.metrics.HOST_SYNCS` (``nuts.leaf``, ``nuts.doubling``), whose
+growth over a transition is its ``stats["host_syncs"]``;
 the decision is taken on values every rank of a mesh holds alike, so
 sharded ranks take the same branches. The reference's hashable transition
 spec serves XLA's compiled-program cache and has no counterpart.
@@ -36,6 +38,7 @@ from typing import Callable
 import torch
 
 from gptools_tpu_torch.infer import hmc as _hmc
+from gptools_tpu_torch.utils import metrics
 
 __all__ = ["nuts_transition_builder", "sample"]
 
@@ -69,7 +72,7 @@ def _build_subtree(logp_and_grad: Callable, edge, v, n_leaf: int, h0, eps, inv_m
     direction ``v`` (C,) from ``edge`` = (z, p, g). Returns a dict of the
     last leaf (z, p, g), the subtree's proposal (prop_z, prop_logp,
     prop_g), its log weight, the turning and diverged flags, the summed
-    acceptance statistic, the leapfrogs and the host syncs."""
+    acceptance statistic and the leapfrogs."""
     z, p, g = edge
     C, P = z.shape
     dtype, dev = z.dtype, z.device
@@ -85,12 +88,11 @@ def _build_subtree(logp_and_grad: Callable, edge, v, n_leaf: int, h0, eps, inv_m
         "sum_acc": torch.zeros((C,), dtype=dtype, device=dev),
         "n_leap": torch.zeros((C,), dtype=torch.int64, device=dev),
     }
-    syncs = 0
     for i in range(n_leaf):
         live = active & ~st["turning"] & ~st["diverged"]
-        syncs += 1
-        if not bool(live.any()):
-            break
+        with metrics.host_sync("nuts.leaf"):
+            if not bool(live.any()):
+                break
         # a frozen chain steps by zero: its row is evaluated at its own edge
         step = torch.where(live, v * eps, 0.0)[:, None]
         zn, pn, logp, gn = _hmc.leapfrog(logp_and_grad, st["z"], st["p"], step, inv_mass,
@@ -134,8 +136,12 @@ def _build_subtree(logp_and_grad: Callable, edge, v, n_leaf: int, h0, eps, inv_m
             "sum_acc": st["sum_acc"] + torch.where(live, acc, 0.0),
             "n_leap": st["n_leap"] + live.to(torch.int64),
         }
-    st["host_syncs"] = syncs
     return st
+
+
+def _nuts_syncs() -> int:
+    """NUTS's host syncs so far (`utils.metrics.HOST_SYNCS`)."""
+    return metrics.HOST_SYNCS["nuts.leaf"] + metrics.HOST_SYNCS["nuts.doubling"]
 
 
 def _nuts_transition(logp_and_grad: Callable, q, logp0, g0, generator, eps, inv_mass,
@@ -159,18 +165,17 @@ def _nuts_transition(logp_and_grad: Callable, q, logp0, g0, generator, eps, inv_
         "n_leap": torch.zeros((C,), dtype=torch.int64, device=dev),
         "depth": torch.zeros((C,), dtype=torch.int64, device=dev),
     }
-    syncs = 0
+    syncs0 = _nuts_syncs()
     for depth in range(max_depth):
         active = ~tr["done"]
-        syncs += 1
-        if not bool(active.any()):
-            break
+        with metrics.host_sync("nuts.doubling"):
+            if not bool(active.any()):
+                break
         right = torch.rand((C,), generator=generator, device=dev) < 0.5
         v = torch.where(right, 1.0, -1.0).to(dtype)
         edge = tuple(_pick(right, tr[a + "r"], tr[a + "l"]) for a in "zpg")
         sub = _build_subtree(logp_and_grad, edge, v, 1 << depth, h0, eps, inv_mass, active,
                              generator, max_depth, divergence_threshold)
-        syncs += sub["host_syncs"]
 
         ok = active & ~sub["turning"] & ~sub["diverged"]
         # biased progressive sampling across doublings
@@ -201,7 +206,7 @@ def _nuts_transition(logp_and_grad: Callable, q, logp0, g0, generator, eps, inv_
         "diverged": tr["diverged"],
         "num_leapfrog": n_leap,
         "tree_depth": tr["depth"],
-        "host_syncs": syncs,
+        "host_syncs": _nuts_syncs() - syncs0,
     }
     return tr["prop_z"], tr["prop_logp"], tr["prop_g"], stats
 
@@ -222,6 +227,7 @@ def nuts_transition_builder(max_depth: int = 10, divergence_threshold: float = 1
     return builder
 
 
+@metrics.solve_entry
 def sample(
     logp: Callable,
     u0: torch.Tensor,

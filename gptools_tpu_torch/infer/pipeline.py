@@ -12,7 +12,9 @@ counterpart here. With ``mesh`` (a `DeviceMesh`) the SMC particles' and
 the chains' densities are sharded over ``mesh_axis`` (default: the mesh's
 first dimension; `parallel.mesh.ShardedDensity`, the whitening's affine
 map computed on each rank's block) and every rank returns the same global
-result.
+result. A pipeline's phases are spans of its solve (`utils.metrics`):
+``solve.warm_start``, ``solve.whitening``, the sampler's ``solve.warmup``
+and ``solve.sampling``, and ``solve.finish``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from gptools_tpu_torch.infer import nuts as _nuts
 from gptools_tpu_torch.infer import smc as _smc
 from gptools_tpu_torch.infer.hmc import SampleResult
 from gptools_tpu_torch.parallel.mesh import ShardedDensity, chain_sharding
+from gptools_tpu_torch.utils import metrics
 
 __all__ = ["smc_then_nuts", "smc_then_chees"]
 
@@ -58,15 +61,16 @@ def _warm_start(model, data, generator, num_chains, num_particles, smc_kwargs, m
                 mesh_axis):
     """SMC to beta = 1, then ``num_chains`` starts resampled from its
     particles. Returns (SMC result, particles (N, P), starts (C, P))."""
-    smc_res = _smc.sample(
-        model, data, generator, num_particles=num_particles, mesh=mesh, mesh_axis=mesh_axis,
-        **(smc_kwargs or {})
-    )
-    particles = smc_res.u[0]
-    idx = torch.randint(
-        0, particles.shape[0], (num_chains,), generator=generator, device=particles.device
-    )
-    return smc_res, particles, particles[idx]
+    with metrics.span("solve.warm_start"):
+        smc_res = _smc.sample(
+            model, data, generator, num_particles=num_particles, mesh=mesh,
+            mesh_axis=mesh_axis, **(smc_kwargs or {})
+        )
+        particles = smc_res.u[0]
+        idx = torch.randint(
+            0, particles.shape[0], (num_chains,), generator=generator, device=particles.device
+        )
+        return smc_res, particles, particles[idx]
 
 
 def _whitening(model, data, particles: torch.Tensor):
@@ -76,7 +80,9 @@ def _whitening(model, data, particles: torch.Tensor):
     cov = torch.cov(particles.T) + 1e-8 * torch.eye(
         P, dtype=particles.dtype, device=particles.device
     )
-    mu, C = particles.mean(0), torch.linalg.cholesky(cov)
+    mu = particles.mean(0)
+    with metrics.host_sync("whitening.cholesky"):  # its info check
+        C = torch.linalg.cholesky(cov)
 
     def logp_w(vs):
         return model.log_posterior_u_batch(vs @ C.T + mu, data)
@@ -93,6 +99,7 @@ def _finish(model, res: SampleResult, smc_res) -> SampleResult:
     return res
 
 
+@metrics.solve_entry
 @torch.no_grad()
 def smc_then_nuts(
     model,
@@ -120,17 +127,21 @@ def smc_then_nuts(
     kw = dict(num_warmup=num_warmup, num_samples=num_samples, max_depth=max_depth,
               target_accept=target_accept, adapt_mass=False)
     if whiten:
-        mu, C, logp_w = _whitening(model, data, particles)
-        res = _nuts.sample(_sharded(logp_w, mesh, mesh_axis), _whiten_init(C, mu, u0),
-                           generator, eps0=0.3, **kw)
-        res = res._replace(u=_unwhiten_samples(C, mu, res.u))
+        with metrics.span("solve.whitening"):
+            mu, C, logp_w = _whitening(model, data, particles)
+            v0 = _whiten_init(C, mu, u0)
+        res = _nuts.sample(_sharded(logp_w, mesh, mesh_axis), v0, generator, eps0=0.3, **kw)
     else:
         var = particles.var(0, unbiased=False) + 1e-10
         res = _nuts.sample(_sharded(model_logp(model, data), mesh, mesh_axis), u0, generator,
                            inv_mass0=var, **kw)
-    return _finish(model, res, smc_res)
+    with metrics.span("solve.finish"):
+        if whiten:
+            res = res._replace(u=_unwhiten_samples(C, mu, res.u))
+        return _finish(model, res, smc_res)
 
 
+@metrics.solve_entry
 @torch.no_grad()
 def smc_then_chees(
     model,
@@ -168,13 +179,17 @@ def smc_then_chees(
     kw = dict(num_warmup=num_warmup, num_samples=num_samples, target_accept=target_accept,
               max_steps=max_steps)
     if whiten:
-        mu, C, logp_w = _whitening(model, data, particles)
-        res = _chees.sample(_sharded(logp_w, mesh, mesh_axis), _whiten_init(C, mu, u0),
-                            generator, eps0=ck.pop("eps0", 0.3), **kw, **ck)
-        res = res._replace(u=_unwhiten_samples(C, mu, res.u))
+        with metrics.span("solve.whitening"):
+            mu, C, logp_w = _whitening(model, data, particles)
+            v0 = _whiten_init(C, mu, u0)
+        res = _chees.sample(_sharded(logp_w, mesh, mesh_axis), v0, generator,
+                            eps0=ck.pop("eps0", 0.3), **kw, **ck)
     else:
         var = particles.var(0, unbiased=False) + 1e-10
         res = _chees.sample(_sharded(model_logp(model, data), mesh, mesh_axis), u0, generator,
                             eps0=ck.pop("eps0", 0.1), inv_mass0=ck.pop("inv_mass0", var),
                             **kw, **ck)
-    return _finish(model, res, smc_res)
+    with metrics.span("solve.finish"):
+        if whiten:
+            res = res._replace(u=_unwhiten_samples(C, mu, res.u))
+        return _finish(model, res, smc_res)

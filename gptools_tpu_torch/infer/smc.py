@@ -10,7 +10,9 @@ The host drives the beta loop, as in the reference. Randomness comes from
 one explicit `torch.Generator`. With a mesh only the likelihood sweeps are
 sharded (`parallel.mesh`): every rank holds the whole ensemble, so the
 weights, the ESS bisection, the resampling and the beta loop's decisions
-are every rank's alike.
+are every rank's alike. Each round is an ``smc.round`` span of the solve
+(`utils.metrics`); the loop's reads of beta and the proposal factor's info
+check are its host syncs (`metrics.HOST_SYNCS`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from gptools_tpu_torch.infer.hmc import SampleResult
 from gptools_tpu_torch.parallel.mesh import check_generators
+from gptools_tpu_torch.utils import metrics
 
 __all__ = ["sample", "smc_round", "SMCState"]
 
@@ -93,7 +96,8 @@ def smc_round(
     # preconditioner from the (resampled, hence equal-weight) ensemble
     centered = u - u.mean(0)
     cov = centered.T @ centered / n + 1e-8 * torch.eye(p, dtype=dtype, device=dev)
-    chol = torch.linalg.cholesky(cov)
+    with metrics.host_sync("smc.cholesky"):  # its info check
+        chol = torch.linalg.cholesky(cov)
     step = proposal_scale * 2.38 / math.sqrt(p)
 
     n_acc = torch.zeros((), dtype=dtype, device=dev)
@@ -117,6 +121,13 @@ def smc_round(
     )
 
 
+def _beta(state: SMCState) -> float:
+    """The state's beta on the host (a counted host sync)."""
+    with metrics.host_sync("smc.beta"):
+        return float(state.beta)
+
+
+@metrics.solve_entry
 @torch.no_grad()
 def sample(
     model,
@@ -160,13 +171,14 @@ def sample(
 
     n_rounds = 0
     betas = [0.0]
-    while float(state.beta) < 1.0 and n_rounds < max_rounds:
-        state = smc_round(
-            log_like_b, log_prior_b, state, generator,
-            ess_target=ess_target, num_mutations=num_mutations,
-        )
-        n_rounds += 1
-        betas.append(float(state.beta))
+    while _beta(state) < 1.0 and n_rounds < max_rounds:
+        with metrics.span("smc.round"):
+            state = smc_round(
+                log_like_b, log_prior_b, state, generator,
+                ess_target=ess_target, num_mutations=num_mutations,
+            )
+            n_rounds += 1
+            betas.append(_beta(state))
         if verbose:
             print(
                 f"SMC round {n_rounds}: beta={float(state.beta):.4f} "

@@ -36,6 +36,11 @@ model and the data alone, before anything is launched, as the reference's
   multi-dimensional data. Each call is counted in
   `evidence_cuda.ROUTE_CALLS`.
 
+Every call's theta rows are counted in `evidence_cuda.ROWS`. While a solve
+records its spans (`utils.metrics`), the outermost batched density call is a
+``density`` span, with the bijector, the prior, the kernel's aux inputs and
+the evidence (kernel or route) as its children.
+
 ``evidence_backend``: ``"auto"`` and ``"fused_pallas"`` take the kernel
 where it applies and the route otherwise; ``"xla"`` always takes the route.
 The reference's ``"auto"`` resolves to ``"xla"`` off a TPU; the port's
@@ -73,6 +78,7 @@ from gptools_tpu_torch.ops import assemble, cov_cuda, evidence, evidence_cuda, f
 from gptools_tpu_torch.ops.kernels import DiagonalNoiseKernel, Kernel
 from gptools_tpu_torch.infer.hmc import ValueWithGrad
 from gptools_tpu_torch.parallel.mesh import ShardedDensity
+from gptools_tpu_torch.utils import metrics
 from gptools_tpu_torch.utils.bounds import CombinedBounds, MaskedBounds
 
 __all__ = ["GPModel", "GaussianProcess", "Prediction"]
@@ -293,7 +299,9 @@ class GPModel:
         return out
 
     def _initial(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.tensor(self.initial_params, dtype=like.dtype, device=like.device)
+        # a copy of a host list to the card, which waits for its stream
+        with metrics.host_sync("model.initial_params"):
+            return torch.tensor(self.initial_params, dtype=like.dtype, device=like.device)
 
     def embed_free(self, theta_free: torch.Tensor) -> torch.Tensor:
         """Scatter free parameters into the full vector (fixed at initial)."""
@@ -463,12 +471,20 @@ class GPModel:
         if thetas.device != data.device:
             raise ValueError(f"thetas on {thetas.device}, data on {data.device}")
         self._check_matern_nu_support(data)
-        if self._evidence_plan(data) is not None:
-            thetaT, ev, aux = self._evidence_inputs(thetas.T, data)
-            return evidence_cuda.loglik(thetaT, ev, aux)
-        if not fused.fused_supported(self.kernel, data.multi_indices, data.num_dim):
-            return self._per_chain_batch(thetas, data)
-        return self._chains_minor_batch(thetas, data)
+        rows = thetas.shape[0]
+        with metrics.density(rows):
+            if self._evidence_plan(data) is not None:
+                evidence_cuda.ROWS["kernel"] += rows
+                with metrics.span("density.aux"):
+                    thetaT, ev, aux = self._evidence_inputs(thetas.T, data)
+                with metrics.span("density.evidence"):
+                    return evidence_cuda.loglik(thetaT, ev, aux)
+            with metrics.span("density.evidence"):
+                if not fused.fused_supported(self.kernel, data.multi_indices, data.num_dim):
+                    evidence_cuda.ROWS["per_chain"] += rows
+                    return self._per_chain_batch(thetas, data)
+                evidence_cuda.ROWS["chains_minor"] += rows
+                return self._chains_minor_batch(thetas, data)
 
     def _chains_minor_batch(self, thetas: torch.Tensor, data: Dataset) -> torch.Tensor:
         """The reference's chains-minor XLA path (``gp.py:556-597``): the
@@ -563,11 +579,13 @@ class GPModel:
         if mesh is not None:
             return ShardedDensity(lambda t: self.log_posterior_batch(t, data), mesh,
                                   mesh_axis)(thetas)
-        lp = self.log_prior(thetas)
-        ll = torch.where(
-            torch.isfinite(lp), self.log_marginal_batch(thetas, data), 0.0
-        )
-        return lp + ll
+        with metrics.density(thetas.shape[0]):
+            with metrics.span("density.prior"):
+                lp = self.log_prior(thetas)
+            ll = torch.where(
+                torch.isfinite(lp), self.log_marginal_batch(thetas, data), 0.0
+            )
+            return lp + ll
 
     def log_posterior_u_batch(self, us: torch.Tensor, data: Dataset, mesh=None,
                               mesh_axis: Optional[str] = None) -> torch.Tensor:
@@ -576,10 +594,12 @@ class GPModel:
         if mesh is not None:
             return ShardedDensity(lambda u: self.log_posterior_u_batch(u, data), mesh,
                                   mesh_axis)(us)
-        u_full = self._u_full(us)
-        thetas = self.bijector.forward(u_full)
-        ldj = self.bijector.log_det_jac(u_full)
-        return self.log_posterior_batch(thetas, data) + ldj
+        with metrics.density(us.shape[0]):
+            with metrics.span("density.bijector"):
+                u_full = self._u_full(us)
+                thetas = self.bijector.forward(u_full)
+                ldj = self.bijector.log_det_jac(u_full)
+            return self.log_posterior_batch(thetas, data) + ldj
 
     # -- single-theta surface -------------------------------------------------
     def _check_device(self, theta: torch.Tensor, data: Dataset) -> None:

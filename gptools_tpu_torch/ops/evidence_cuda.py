@@ -48,7 +48,9 @@ version, per kind, so a run can show which route it took. Where the kernel
 does not apply (`models.gp.GPModel.log_marginal_batch` decides that from the
 model and the data), the batch evidence takes the reference's XLA route in
 torch instead; `ROUTE_CALLS` counts those calls, per route
-(``chains_minor``, ``per_chain``), apart from both.
+(``chains_minor``, ``per_chain``), apart from both. `ROWS` counts the theta
+rows (chain-evaluations) that reach ``log_marginal_batch``, by the path they
+take (``kernel``: the kernel or its plain version; or the route's name).
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ __all__ = [
     "LAUNCHES",
     "PLAIN_CALLS",
     "ROUTE_CALLS",
+    "ROWS",
     "reset_counts",
     "build",
     "library",
@@ -94,6 +97,7 @@ AUX_NAMES = ("mu", "nd", "w", "wp")
 LAUNCHES = {k: 0 for k in KINDS}
 PLAIN_CALLS = {k: 0 for k in KINDS}
 ROUTE_CALLS = {"chains_minor": 0, "per_chain": 0}
+ROWS = {"kernel": 0, "chains_minor": 0, "per_chain": 0}
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -110,12 +114,14 @@ BUILD_INFO: dict = {}
 
 
 def reset_counts() -> None:
-    """Set every launch, plain-call and route-call count to 0."""
+    """Set every launch, plain-call, route-call and row count to 0."""
     for k in KINDS:
         LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
     for k in ROUTE_CALLS:
         ROUTE_CALLS[k] = 0
+    for k in ROWS:
+        ROWS[k] = 0
 
 
 class EvidenceData(NamedTuple):
