@@ -291,33 +291,50 @@ class GPModel:
         return theta[..., o : o + self._sizes[2]]
 
     # -- free/fixed embedding (last axis) ------------------------------------
-    def _full(self, free: torch.Tensor, fill: torch.Tensor) -> torch.Tensor:
-        if self.num_free_params == self.num_params:
-            return free
-        out = fill.expand(free.shape[:-1] + (self.num_params,)).clone()
-        out[..., list(self.free_idx)] = free
-        return out
+    def _fixed(self, like: torch.Tensor) -> tuple:
+        """The initial vector, its image under ``bijector.inverse`` and the
+        free indices, as tensors of ``like``'s dtype on its device. A tensor
+        made from host values is a copy to the card, which waits for its
+        stream, so they are made once per (``initial_params``, dtype,
+        device) and never written: reassigning ``initial_params`` makes
+        them anew. Made outside any `torch.func` transform."""
+        cache = self.__dict__.setdefault("_fixed_cache", {})
+        key = (like.dtype, like.device)
+        init = tuple(self.initial_params)
+        entry = cache.get(key)
+        if entry is None or entry[0] != init:
+            with metrics.host_sync("model.initial_params"), torch._C._DisableFuncTorch():
+                theta0 = torch.tensor(init, dtype=like.dtype, device=like.device)
+                idx = torch.tensor(self.free_idx, dtype=torch.long, device=like.device)
+                entry = cache[key] = (init, theta0, self.bijector.inverse(theta0), idx)
+        return entry[1:]
 
-    def _initial(self, like: torch.Tensor) -> torch.Tensor:
-        # a copy of a host list to the card, which waits for its stream
-        with metrics.host_sync("model.initial_params"):
-            return torch.tensor(self.initial_params, dtype=like.dtype, device=like.device)
+    def _full(self, free: torch.Tensor, fill: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        out = fill.expand(free.shape[:-1] + (self.num_params,)).clone()
+        out[..., idx] = free
+        return out
 
     def embed_free(self, theta_free: torch.Tensor) -> torch.Tensor:
         """Scatter free parameters into the full vector (fixed at initial)."""
-        return self._full(theta_free, self._initial(theta_free))
+        if self.num_free_params == self.num_params:
+            return theta_free
+        theta0, _, idx = self._fixed(theta_free)
+        return self._full(theta_free, theta0, idx)
 
     def extract_free(self, theta_full: torch.Tensor) -> torch.Tensor:
         if self.num_free_params == self.num_params:
             return theta_full
-        return theta_full[..., list(self.free_idx)]
+        return theta_full[..., self._fixed(theta_full)[2]]
 
     # -- unconstrained space -------------------------------------------------
     def u_of_theta(self, theta_full: torch.Tensor) -> torch.Tensor:
         return self.extract_free(self.bijector.inverse(theta_full))
 
     def _u_full(self, u_free: torch.Tensor) -> torch.Tensor:
-        return self._full(u_free, self.bijector.inverse(self._initial(u_free)))
+        if self.num_free_params == self.num_params:
+            return u_free
+        _, u0, idx = self._fixed(u_free)
+        return self._full(u_free, u0, idx)
 
     def theta_of_u(self, u_free: torch.Tensor) -> torch.Tensor:
         return self.bijector.forward(self._u_full(u_free))

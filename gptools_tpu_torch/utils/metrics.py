@@ -148,7 +148,8 @@ class MetricsLogger:
 HOST_SYNCS = {
     "chees.trajectory_length": 0,  # chees_step's int(L)
     "chees.halton": 0,             # chees_step's Halton number, copied to the card
-    "model.initial_params": 0,     # GPModel._initial, copied to the card
+    "model.initial_params": 0,     # GPModel._fixed's tensors, copied to the card once
+                                   # a (dtype, device); none for an all-free model
     "smc.beta": 0,                 # the tempering loop's reads of beta
     "smc.cholesky": 0,             # the proposal factor's info check
     "whitening.cholesky": 0,       # the ensemble factor's info check

@@ -15,7 +15,9 @@ covariance kernel
 (`cov_cuda`) is held to its plain version at theta batches 1 and 512 on
 configs 4 (gibbs_tanh) and 2 (se) and in its tile layout at N = 1001
 (ragged) and 65 and 130 (ids outside {0, 1}), the whole matrix exactly
-symmetric, with its VJP and the pallas-backend serving predictor.
+symmetric, with its VJP and the pallas-backend serving predictor. A
+batched density call with its gradient (config 4, all free and with x0
+fixed) never makes the host wait for the card.
 """
 
 import json
@@ -119,6 +121,35 @@ def test_model_gradient_through_kernel(dev, problem):
     np.testing.assert_allclose(
         g.cpu().numpy(), (ct[:, None] * gp.T).cpu().numpy(), rtol=1e-7, atol=1e-9
     )
+
+
+@pytest.mark.parametrize("fixed", [False, True])
+def test_density_call_never_waits_for_the_card(dev, problem, fixed):
+    """One `hmc.value_and_grad(log_posterior_u_batch)` call on config 4's
+    model (and on it with x0 fixed, once its fixed tensors are made) under
+    ``set_sync_debug_mode("error")``: no read of the card and no copy to
+    it that waits for the stream."""
+    from gptools_tpu_torch.infer import hmc
+    from gptools_tpu_torch.ops.kernels import GibbsKernel1dTanh
+
+    prob, _ = problem
+    model = prob.model
+    if fixed:
+        model = GPModel(GibbsKernel1dTanh(hyperprior=model.kernel.hyperprior,
+                                          fixed_params=[False] * 4 + [True]))
+    th = model.extract_free(_draws(256, torch.float64, dev, seed=4).T.contiguous())
+    us = model.u_of_theta(model.embed_free(th))
+    vg = hmc.value_and_grad(lambda u: model.log_posterior_u_batch(u, prob.data))
+    lp0, g0 = vg(us)  # loads the library, uploads the data and the fixed tensors
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lp, g = vg(us)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(lp, lp0) and torch.equal(g, g0)
+    assert bool(torch.isfinite(lp).all()) and bool(torch.isfinite(g).all())
 
 
 def test_model_raises_beyond_kernel_range(dev):

@@ -306,7 +306,7 @@ def test_pallas_backend_makes_points_once_per_dataset(config):
     prob = configs.ALL_CONFIGS[config](dtype=torch.float64, device="cpu")
     model = GPModel(prob.model.kernel, cov_backend="pallas")
     fused_model = GPModel(prob.model.kernel, cov_backend="fused")
-    th = model._initial(torch.zeros((), dtype=torch.float64))
+    th = torch.tensor(model.initial_params, dtype=torch.float64)
     K1 = model._latent_cov(th, prob.data, False)
     data, pts = model._points_cache
     assert data is prob.data and pts.n == prob.data.num_obs
